@@ -1,9 +1,14 @@
-"""Hand-written Hopper kernels, each beside its plain PyTorch version, with a
-dispatch wrapper (``ops.py``) that launches the kernel for a CUDA tensor and
-runs the plain version for a CPU tensor:
+"""Hand-written Hopper kernels, each beside its plain PyTorch version. Each
+wrapper launches its kernel for a CUDA tensor and runs the plain version
+for a CPU tensor:
 
-* ``writhe`` — the paper's workload: the Gauss-linking writhe map
-  (``csrc/writhe.cu``, CUDA C++ for ``sm_90a``).
+* ``writhe.writhe_map`` — the paper's workload: the Gauss-linking writhe
+  map (``csrc/writhe.cu``, CUDA C++ for ``sm_90a``), also reached through
+  ``ops.writhe``;
+* ``flash_decode.flash_decode`` and ``flash_decode.flash_decode_paged`` —
+  single-token decode attention over a dense and a paged KV cache
+  (``csrc/flash_decode.cu``, CUDA C++ for ``sm_90a``), reached by the model
+  through ``decode_attention`` and ``decode_attention_paged``.
 
 ``build.py`` compiles the ``csrc/*.cu`` sources with ``nvcc`` at first use.
 """

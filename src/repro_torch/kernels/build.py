@@ -5,8 +5,9 @@ own into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout, for Hopper only (``sm_90a``). The build runs at first use; the
 file name carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded. Worker slots run tasks on
-threads, so the build is serialised by a lock and written to a temporary
-path that is then renamed into place (atomic against other processes too).
+threads, so each source's build is serialised by its own lock (two sources
+build in parallel) and written to a temporary path that is then renamed
+into place (atomic against other processes too).
 
 Nothing here runs at import, so every module of the port imports on a
 machine with no CUDA toolkit.
@@ -28,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -56,9 +58,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _lock(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
+
+
 def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    with _lock:
+    with _lock(name):
         return _build_locked(name)
 
 
@@ -83,7 +90,7 @@ def _build_locked(name: str) -> BuildResult:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
+    with _lock(name):
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build_locked(name).path))

@@ -1,7 +1,9 @@
 """The port's copy of the KSA control plane against its original.
 
 Every module of ``repro.core``, ``repro.pipeline``, ``repro.autoscale``,
-``repro.obs`` (but ``catalog``) and ``repro.cluster`` is copied verbatim into
+``repro.obs`` (but ``catalog``) and ``repro.cluster``, and the pure-Python
+modules of the serving slice (``repro.models.config``, ``repro.configs``,
+``repro.serve`` but its engine) are copied verbatim into
 ``repro_torch`` with ``repro.`` renamed to ``repro_torch.`` and the
 reference's issue numbers dropped from its comments (``rewrite``). Each copy
 must equal its original after that rewrite, apart from the deliberate changes
@@ -27,7 +29,20 @@ COPIED = [
     *(f"autoscale/{m}.py" for m in ("rate", "policy", "controller",
                                     "__init__")),
     "cluster.py",
+    # pure-Python modules of the serving slice
+    "models/config.py",
+    *(f"configs/{m}.py" for m in ("__init__", "deepseek_v3_671b",
+                                  "gemma3_1b", "gemma3_4b", "hubert_xlarge",
+                                  "internlm2_1_8b", "internvl2_1b",
+                                  "mamba2_130m", "moonshot_v1_16b_a3b",
+                                  "recurrentgemma_2b", "stablelm_1_6b")),
+    *(f"serve/{m}.py" for m in ("paged", "metrics", "replica", "__init__")),
 ]
+
+# modules of the reference's serving slice that the port rewrites for torch
+# (held to the reference by tests/test_torch_serve.py and
+# tests/test_torch_models.py, not textually)
+PORTED = {"serve/engine.py"}
 
 # (original text, replacement) applied after the rename; each original text
 # must occur in the reference, so a change there shows up here.
@@ -72,10 +87,10 @@ def test_every_control_plane_module_is_copied():
     """A module added to the reference's control plane must be copied (or
     left out on purpose here)."""
     left_out = {"obs/catalog.py"}
-    for pkg in ("core", "pipeline", "autoscale", "obs"):
+    for pkg in ("core", "pipeline", "autoscale", "obs", "configs", "serve"):
         for f in sorted((SRC / "repro" / pkg).glob("*.py")):
             rel = f"{pkg}/{f.name}"
-            assert rel in COPIED or rel in left_out, rel
+            assert rel in COPIED or rel in PORTED or rel in left_out, rel
 
 
 def _campaign(cluster_cls, pipeline_fn, ids, **kw):
