@@ -1,7 +1,7 @@
 """The model core of the port: configs, parameter specs, layers, attention
 and the transformer stack, for the ``attn``/``local`` layer kinds with a
-dense MLP (the recurrent kinds, MoE, MLA and the frontends come with later
-slices; see ``ROADMAP.md``).
+dense MLP and the Mamba-2 ``ssd`` kind (``rglru``, MoE, MLA and the
+frontends come with later slices; see ``ROADMAP.md``).
 
 ``config.py`` is a verbatim copy of the reference's. Its ``use_pallas`` and
 ``kernel_interpret`` fields stay, since a copy stays as it is, but the port

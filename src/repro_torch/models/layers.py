@@ -132,6 +132,29 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _MatmulWideOut(torch.autograd.Function):
+    """``torch.mm(x2, w, out_dtype=out_dt)`` with a gradient (PyTorch has no
+    derivative for ``out_dtype``). The backward is the reference's
+    transpose rule for a product with ``preferred_element_type``: the
+    float32 cotangent times the other operand upcast, in float32, then cast
+    to each operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w, out_dt):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=out_dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.to(g.dtype).T).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x2.to(g.dtype).T @ g).to(w.dtype)
+        return gx, gw, None
+
+
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, padded_vocab) logits in ``logit_dtype``.
 
@@ -142,7 +165,8 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     the (tied, 262144 x 1152 at gemma3-1b) table every step. So for a
     narrower working dtype on the card the port takes ``torch.mm`` with
     ``out_dtype`` (bf16 inputs, float32 accumulation and output, the weights
-    read in place); float32 weights need nothing but the plain product. On
+    read in place), with the gradient of :class:`_MatmulWideOut`; float32
+    weights need nothing but the plain product. On
     the CPU, where ``out_dtype`` has no kernel, a narrower dtype upcasts.
     """
     if cfg.tie_embeddings:
@@ -155,7 +179,7 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if x.dtype == out_dt and w.dtype == out_dt:
         logits = x2 @ w
     elif x.device.type == "cuda":
-        logits = torch.mm(x2, w, out_dtype=out_dt)
+        logits = _MatmulWideOut.apply(x2, w, out_dt)
     else:
         logits = x2.to(out_dt) @ w.to(out_dt)
     return logits.reshape(b, s, -1)

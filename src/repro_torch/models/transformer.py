@@ -1,8 +1,10 @@
 """The composable model stack.
 
 Port of ``repro/models/transformer.py`` for the ``attn``/``local`` layer
-kinds with a dense MLP. Layers are generated from ``cfg.layer_pattern``
-cycled over ``n_layers``; the parameters and caches of the full periods are
+kinds with a dense MLP and the Mamba-2 ``ssd`` kind (with an MLP only where
+the reference's ``_has_mlp`` rule gives one: never for ``d_ff = 0``).
+Layers are generated from ``cfg.layer_pattern`` cycled over ``n_layers``;
+the parameters and caches of the full periods are
 stacked on a leading ``layers`` axis, as in the reference, so one
 :func:`repro_torch.convert.tree_to_torch` carries a JAX tree across. Where
 the reference runs ``lax.scan`` over that axis, the port runs a Python loop
@@ -10,8 +12,8 @@ that indexes it. Remainder layers (``n_layers % period``) follow under
 ``"tail"``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``ssd`` and ``rglru`` kinds (Queue 1, item 5), MoE, MLA and the
-frontends (item 7), and ``dist`` (item 8).
+the ``rglru`` kind (Queue 1, item 5), MoE, MLA and the frontends (item 7),
+and ``dist`` (item 8).
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from .config import ModelConfig
 from .layers import (embed, embedding_spec, mlp, mlp_spec, rmsnorm,
                      rmsnorm_spec, unembed)
 from .params import stack_specs
+from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
-_RECURRENT = "recurrent layers (ssd, rglru) come with the recurrent slice: " \
+_RECURRENT = "the rglru layer comes with the rest of the recurrent slice: " \
              "ROADMAP.md Queue 1, item 5"
 _MOE_MLA_FRONTEND = "MoE, MLA and the modality frontends come with a later " \
                     "slice: ROADMAP.md Queue 1, item 7"
@@ -34,19 +37,30 @@ _SHARDED = "sharded execution (dist) comes with the sharded slice: " \
 
 
 def _check_supported(cfg: ModelConfig, kind: str | None = None) -> None:
-    if kind in ("ssd", "rglru"):
+    if kind == "rglru":
         raise NotImplementedError(_RECURRENT)
-    if kind is not None and kind not in ("attn", "local"):
+    if kind is not None and kind not in ("attn", "local", "ssd"):
         raise ValueError(f"unknown layer kind {kind}")
     if cfg.moe is not None or cfg.mla is not None or cfg.frontend is not None:
         raise NotImplementedError(_MOE_MLA_FRONTEND)
 
 
+def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    if kind in ("attn", "local"):
+        return True
+    return cfg.d_ff > 0
+
+
 def block_spec(cfg: ModelConfig, kind: str) -> dict:
     _check_supported(cfg, kind)
     d = cfg.d_model
-    return {"norm1": rmsnorm_spec(d), "mix": attention_spec(cfg),
-            "norm2": rmsnorm_spec(d), "ffn": mlp_spec(cfg)}
+    spec: dict = {"norm1": rmsnorm_spec(d),
+                  "mix": ssd_spec(cfg) if kind == "ssd"
+                  else attention_spec(cfg)}
+    if _has_mlp(cfg, kind):
+        spec["norm2"] = rmsnorm_spec(d)
+        spec["ffn"] = mlp_spec(cfg)
+    return spec
 
 
 def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
@@ -64,12 +78,16 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
         raise NotImplementedError(_SHARDED)
     aux = 0.0
     h = rmsnorm(params["norm1"], x, cfg.rms_eps)
-    y, new_cache = attention_block(params["mix"], cfg, h, kind=kind,
-                                   positions=positions, cache=cache,
-                                   cache_index=cache_index, pages=pages)
+    if kind == "ssd":
+        y, new_cache = ssd_block(params["mix"], cfg, h, cache=cache)
+    else:
+        y, new_cache = attention_block(params["mix"], cfg, h, kind=kind,
+                                       positions=positions, cache=cache,
+                                       cache_index=cache_index, pages=pages)
     x = x + y
-    h = rmsnorm(params["norm2"], x, cfg.rms_eps)
-    x = x + mlp(params["ffn"], cfg, h)
+    if _has_mlp(cfg, kind):
+        h = rmsnorm(params["norm2"], x, cfg.rms_eps)
+        x = x + mlp(params["ffn"], cfg, h)
     return x, new_cache, aux
 
 
@@ -196,6 +214,14 @@ def _build_caches(cfg: ModelConfig, make) -> dict:
     return out
 
 
+def _cache_for(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+               dtype: torch.dtype) -> dict:
+    """One layer's decode cache on the ``meta`` device."""
+    if kind == "ssd":
+        return init_ssd_cache(cfg, batch, dtype, "meta")
+    return init_kv_cache(cfg, kind, batch, max_len, dtype, "meta")
+
+
 def _materialize(tree: dict, device: torch.device) -> dict:
     if isinstance(tree, dict):
         return {k: _materialize(v, device) for k, v in tree.items()}
@@ -208,8 +234,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache tree matching the stacked layout of :func:`forward`."""
     from repro_torch.convert import resolve_device
     dev = resolve_device(device)
-    shapes = _build_caches(cfg, lambda kind: init_kv_cache(
-        cfg, kind, batch, max_len, dtype, "meta"))
+    shapes = _build_caches(cfg, lambda kind: _cache_for(
+        cfg, kind, batch, max_len, dtype))
     return _materialize(shapes, dev)
 
 
@@ -227,9 +253,11 @@ def paged_layout(max_len: int, page_size: int, batch: int,
 
 def _paged_cache_for(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, *, page_size: int, n_pages: int) -> dict:
-    if kind == "local" and min(max_len, cfg.window_size) < max_len:
-        # ring buffers are already O(window); keep them dense.
-        return init_kv_cache(cfg, kind, batch, max_len, dtype, "meta")
+    if kind == "ssd" or (kind == "local"
+                         and min(max_len, cfg.window_size) < max_len):
+        # ring buffers are already O(window), recurrent state O(1); keep
+        # them dense.
+        return _cache_for(cfg, kind, batch, max_len, dtype)
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"pool_k": torch.empty(shape, dtype=dtype, device="meta"),
             "pool_v": torch.empty(shape, dtype=dtype, device="meta")}
@@ -242,8 +270,9 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache tree with paged KV for the full-context attention
     layers: physical pools ``(n_pages, page_size, K, Dh)`` indexed through
     the page table that :func:`forward` takes as ``pages``. Ring (local)
-    caches keep their dense layout — they are already O(window) per slot.
-    Page 0 is reserved as the trash page for writes from unbound slots."""
+    and recurrent (ssd) caches keep their dense layout — they are already
+    O(window) / O(1) per slot. Page 0 is reserved as the trash page for
+    writes from unbound slots."""
     from repro_torch.convert import resolve_device
     dev = resolve_device(device)
     _, n_pages = paged_layout(max_len, page_size, batch, n_pages)
@@ -256,5 +285,5 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  dtype: torch.dtype) -> Any:
     """The decode cache tree as ``meta`` tensors (shapes and dtypes only)."""
-    return _build_caches(cfg, lambda kind: init_kv_cache(
-        cfg, kind, batch, max_len, dtype, "meta"))
+    return _build_caches(cfg, lambda kind: _cache_for(
+        cfg, kind, batch, max_len, dtype))

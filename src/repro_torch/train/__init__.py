@@ -1,6 +1,10 @@
-"""Step builders of the port. Serving and prefill are ported; training
-(``make_train_step``, the loss, the optimizer) comes with the training
-slice (``ROADMAP.md`` Queue 1, item 6)."""
-from .step import make_decode_caches, make_prefill_step, make_serve_step
+"""Step builders, the LM loss and the fault-tolerant trainer of the port
+(``trainer.py`` registers the ``train_chunk`` task when imported)."""
+from .loss import lm_loss
+from .step import (TrainState, init_train_state, make_decode_caches,
+                   make_prefill_step, make_serve_step, make_train_step,
+                   train_state_shapes)
 
-__all__ = ["make_decode_caches", "make_prefill_step", "make_serve_step"]
+__all__ = ["TrainState", "init_train_state", "lm_loss", "make_decode_caches",
+           "make_prefill_step", "make_serve_step", "make_train_step",
+           "train_state_shapes"]

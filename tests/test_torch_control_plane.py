@@ -2,9 +2,9 @@
 
 Every module of ``repro.core``, ``repro.pipeline``, ``repro.autoscale``,
 ``repro.obs`` (but ``catalog``) and ``repro.cluster``, and the pure-Python
-modules of the serving slice (``repro.models.config``, ``repro.configs``,
-``repro.serve`` but its engine) are copied verbatim into
-``repro_torch`` with ``repro.`` renamed to ``repro_torch.`` and the
+modules of the serving and training slices (``repro.models.config``,
+``repro.configs``, ``repro.serve`` but its engine, ``repro.data``) are
+copied verbatim into ``repro_torch`` with ``repro.`` renamed to ``repro_torch.`` and the
 reference's issue numbers dropped from its comments (``rewrite``). Each copy
 must equal its original after that rewrite, apart from the deliberate changes
 declared in ``DELIBERATE`` — so the two cannot drift. Then one small knot
@@ -37,6 +37,8 @@ COPIED = [
                                   "mamba2_130m", "moonshot_v1_16b_a3b",
                                   "recurrentgemma_2b", "stablelm_1_6b")),
     *(f"serve/{m}.py" for m in ("paged", "metrics", "replica", "__init__")),
+    # numpy-only data stream of the training slice
+    *(f"data/{m}.py" for m in ("synthetic", "__init__")),
 ]
 
 # modules of the reference's serving slice that the port rewrites for torch
@@ -87,7 +89,8 @@ def test_every_control_plane_module_is_copied():
     """A module added to the reference's control plane must be copied (or
     left out on purpose here)."""
     left_out = {"obs/catalog.py"}
-    for pkg in ("core", "pipeline", "autoscale", "obs", "configs", "serve"):
+    for pkg in ("core", "pipeline", "autoscale", "obs", "configs", "serve",
+                "data"):
         for f in sorted((SRC / "repro" / pkg).glob("*.py")):
             rel = f"{pkg}/{f.name}"
             assert rel in COPIED or rel in PORTED or rel in left_out, rel

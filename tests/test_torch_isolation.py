@@ -69,6 +69,26 @@ def test_every_module_imports_without_jax_repro_or_msgpack():
     assert int(out.stdout.split()[-1]) >= 35
 
 
+def test_training_slice_is_covered():
+    """The training slice's subpackages are among the files checked above
+    and import in the blocked interpreter (walk_packages finds them)."""
+    rel = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    for need in ("optim/adamw.py", "optim/schedule.py", "data/synthetic.py",
+                 "checkpoint/saver.py", "train/trainer.py", "train/loss.py",
+                 "models/ssd.py", "kernels/ssd.py", "tree.py"):
+        assert need in rel, need
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    for mod in ("repro_torch.optim", "repro_torch.checkpoint.saver",
+                "repro_torch.data.synthetic", "repro_torch.train.trainer",
+                "repro_torch.kernels.ssd", "repro_torch.models.ssd"):
+        assert mod in names, mod
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card it exits non-zero and prints no result line."""
     import torch

@@ -5,10 +5,15 @@
 * A JAX ``init_params`` tree, carried across with ``tree_to_torch``, runs
   through the port's ``forward``: logits within atol 2e-5 of JAX's for
   whole-sequence, dense-decode, ring-decode and paged-decode, on the
-  ``stablelm_1_6b`` and ``gemma3_1b`` smoke configs in float32.
+  ``stablelm_1_6b`` and ``gemma3_1b`` smoke configs in float32; and on the
+  ``mamba2_130m`` smoke config (Mamba-2 SSD layers, no MLP) for the whole
+  sequence, prefill into the caches and decode steps (``ssd_step`` with the
+  conv state).
 * The port's ``init_params`` draws in the target dtype on the target
   device, deterministically per generator.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +37,8 @@ from repro_torch.models.transformer import init_caches, init_paged_caches
 from repro_torch.serve import PageAllocator
 
 ATOL = 2e-5
-PORTED = ("stablelm_1_6b", "gemma3_1b", "gemma3_4b", "internlm2_1_8b")
+PORTED = ("stablelm_1_6b", "gemma3_1b", "gemma3_4b", "internlm2_1_8b",
+          "mamba2_130m")
 NOT_YET = tuple(a for a in jax_configs.ARCHS if a not in PORTED)
 
 
@@ -57,8 +63,8 @@ def test_model_spec_matches_reference(arch, size):
                   else "smoke_config")(arch)
     jcfg = getattr(jax_configs, "get_config" if size == "config"
                    else "smoke_config")(arch)
-    assert cfg == cfg.__class__(**{f: getattr(jcfg, f)
-                                   for f in jcfg.__dataclass_fields__})
+    # field by field, nested configs (SSMConfig, ...) included
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     got = _spec_shapes(model_spec(cfg), lambda s: s.shape)
     want = _spec_shapes(jax_model_spec(jcfg), lambda s: s.shape)
     assert got == want
@@ -116,7 +122,8 @@ def test_unembed_reads_the_tied_table_in_place():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=["stablelm_1_6b", "gemma3_1b"])
+@pytest.fixture(scope="module",
+                params=["stablelm_1_6b", "gemma3_1b", "mamba2_130m"])
 def model(request):
     arch = request.param
     jcfg = jax_configs.smoke_config(arch)
@@ -128,7 +135,7 @@ def model(request):
 
 def test_whole_sequence_logits(model):
     """S=128 > kv_chunk: the chunked loop, and for gemma3's local layers
-    the banded path."""
+    the banded path; for mamba2, four SSD chunks of 32."""
     _, jcfg, jparams, cfg, params, _ = model
     tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 128))
     want, _, _ = jax_forward(jparams, jcfg,
@@ -259,3 +266,15 @@ def test_prefill_then_decode_matches_reference(model):
         params, torch.from_numpy(nxt), tc, torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+
+
+def test_mamba2_blocks_have_no_mlp():
+    """The reference's ``_has_mlp`` rule: an ``ssd`` block with d_ff = 0
+    has no ``norm2``/``ffn``; attention blocks always have them."""
+    from repro_torch.models import block_spec
+    cfg = configs.get_config("mamba2_130m")
+    assert set(block_spec(cfg, "ssd")) == {"norm1", "mix"}
+    assert {"norm2", "ffn"} <= set(block_spec(configs.get_config(
+        "stablelm_1_6b"), "attn"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        block_spec(configs.get_config("recurrentgemma_2b"), "rglru")

@@ -386,3 +386,23 @@ def test_serve_pipeline_matches_reference(reference):
     assert got["n_requests"] == want["n_requests"] == 4
     assert got["responses"] == want["responses"]
     assert got["total_tokens"] == want["total_tokens"] == 20
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_serves_mamba2(paged):
+    """The Mamba-2 smoke config (SSD layers: prompts fed a token a step go
+    through ``ssd_step`` and the conv state) through the port's engine with
+    2 slots gives the JAX engine's greedy tokens; slots are reused, so the
+    per-slot recurrent state is reset on admission."""
+    jcfg = jax_smoke_config("mamba2_130m")
+    params = jax_init_params(jax_model_spec(jcfg), jax.random.PRNGKey(4),
+                             jnp.float32)
+    reqs = [(f"m{i}", p, 6) for i, p in
+            enumerate(_prompts(1, VOCAB, [4 + 3 * i for i in range(5)]))]
+    want = JaxEngine(jcfg, params, n_slots=8, max_len=64,
+                     decode_kernel="chunked").run_until_drained(list(reqs))
+    eng = ServeEngine(smoke_config("mamba2_130m"),
+                      tree_to_torch(jax.tree.map(np.asarray, params), "cpu"),
+                      n_slots=2, max_len=64, device="cpu", paged=paged,
+                      page_size=16)
+    assert eng.run_until_drained(list(reqs)) == want
