@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA Hopper GPU.
 
-Drives the port's three main paths through ``repro_torch.cluster.
+Drives the port's four main paths through ``repro_torch.cluster.
 KsaCluster``: the AlphaKnot campaign at the paper's batch size (4000
 structures per task) on 512-point backbones, the serving decode path
 (tokenize -> generate -> postprocess) on gemma3-1b at full width, and the
-fault-tolerant training campaign on mamba2-130m at full width. It builds
-every CUDA kernel of those paths from this checkout, holds each against its
-plain PyTorch version on the card, and times it beside its bound. Phases:
+fault-tolerant training campaigns on mamba2-130m and on gemma3-1b at full
+width. It builds every CUDA kernel of those paths from this checkout, holds
+each against its plain PyTorch version on the card, and times it beside its
+bound. Phases:
 
 1. environment: torch, CUDA, nvcc, the card (nvidia-smi), msgpack;
 2. build: nvcc for sm_90a, with the build time and ptxas' report;
@@ -56,7 +57,29 @@ plain PyTorch version on the card, and times it beside its bound. Phases:
    in chunk 2; the watchdog resubmits, and the step-8 checkpoint must equal
    phase 15's bit for bit (else the ops that vary are named);
 17. one train step at full width cut to 2 layers in float32 on the card and
-   on the CPU: loss, grad norm and updated params agree.
+   on the CPU: loss, grad norm and updated params agree;
+18. build of the flash-attention kernel (started beside the others in
+   phase 2);
+19. flash-attention kernel against its plain version on the card: the cases
+   of tests/test_kernels.py (f32 atol/rtol 2e-5, bf16 2e-2), the
+   bidirectional case, points of the property sweep, q_offset > 0, rows
+   with no valid key (exact zeros), the model shapes (gemma3-1b global and
+   local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in bf16 against the
+   plain version in float32, twice bit-identical, and the autograd
+   function's gradients against autograd through the plain version (1e-5);
+20. flash-attention timing at the gemma3-1b global and local shapes of the
+   main path (B=1, S=4096) and the stablelm-1.6b shape (B=2, S=4096),
+   bf16: kernel, plain version,
+   ``scaled_dot_product_attention`` as the yardstick, and the bound;
+21. the attention training main path: gemma3-1b at full width, bf16 params
+   with an fp32 master, batch 1 x 4096, a ``TrainCampaign`` of 8 steps in 2
+   chunks of 4 on a GPU worker: exactly 26 flash-attention launches per
+   step and no SSD launch, finite losses, a checkpoint at step 8; step
+   time, tokens/s, checkpoint save and restore, peak device memory, device
+   busy share;
+22. one train step of gemma3-1b at full width cut to 2 layers (one local,
+   one global) in float32 on the card and on the CPU: loss, grad norm and
+   updated params agree.
 
 The last three lines of its output are the kernels line (JSON), the card's
 name and power limit as nvidia-smi gives them, and the result line (JSON).
@@ -153,7 +176,10 @@ def phase_environment(build) -> str:
             "(checkpoint shards in zstd)")
     except ImportError:
         log("zstandard: not installed (checkpoint shards in zlib)")
-    log(f"host: {os.cpu_count()} CPUs")
+    mem = next((line.split(":", 1)[1].strip()
+                for line in Path("/proc/meminfo").read_text().splitlines()
+                if line.startswith("MemTotal:")), "not read")
+    log(f"host: {os.cpu_count()} CPUs, MemTotal {mem}")
     return smi
 
 
@@ -168,12 +194,13 @@ def report_build(name: str, res) -> None:
 def phase_build(build, writhe, pool):
     """Every source compiles at once, one nvcc each; the writhe build is
     reported here, the flash-decode one in phase 7, the SSD one in phase
-    12."""
+    12, the flash-attention one in phase 18."""
     pending = {name: pool.submit(build.build, name)
-               for name in ("writhe", "flash_decode", "ssd")}
+               for name in ("writhe", "flash_decode", "ssd",
+                            "flash_attention")}
     report_build("writhe", pending["writhe"].result())
     writhe._library()
-    return pending["flash_decode"], pending["ssd"]
+    return pending["flash_decode"], pending["ssd"], pending["flash_attention"]
 
 
 def frobenius_rel(got: torch.Tensor, exact: torch.Tensor) -> float:
@@ -866,12 +893,14 @@ SSD_ATOL_F32, SSD_ATOL_BF16 = 1e-4, 5e-2    # tests/test_kernels.py
 # order and chunk (the kernel's 32 against the model's 256)
 SSD_MAIN_ATOL = 5e-2
 BF16_FLOP_S = 989e12                        # H100 SXM dense bf16 tensor cores
-TRAIN = dict(batch=8, seq=2048, total_steps=24, chunk_steps=8)
-RECOVERY = dict(total_steps=8, chunk_steps=4)
+# A training campaign: the arch at full width, batch x seq tokens a step,
+# and mem_mb, the host memory a chunk may grow by (the checkpoint's host
+# copy and its serialization buffers; the agent revokes a task past it).
+# mamba2-130m: 1.8 GB of state, so 16 GB covers it.
+TRAIN = dict(arch=TRAIN_ARCH, batch=8, seq=2048, total_steps=24,
+             chunk_steps=8, mem_mb=16384)
+RECOVERY = dict(TRAIN, total_steps=8, chunk_steps=4)
 PROFILE_TRAIN_STEPS = 3
-# host memory a full-width chunk may grow by: the checkpoint's host copy and
-# serialization buffers (1.8 GB each); the agent revokes a task past it
-TRAIN_MEM_MB = 16384
 
 
 def phase_ssd_build(ssd, pending) -> None:
@@ -1049,9 +1078,11 @@ def _ckpt_bytes(path: str) -> int:
     return sum(f.stat().st_size for f in Path(path).iterdir())
 
 
-def _instrument_training(trainer, ckpt_mod, record: dict) -> None:
+def _instrument_training(trainer, ckpt_mod) -> dict:
     """Time each train step (host clock, synchronised) and each checkpoint
-    save/restore inside the tasks."""
+    save/restore inside the tasks, into the returned record (installed
+    once; each campaign phase clears the record first)."""
+    record = {"steps": [], "saves": [], "restores": []}
     make = trainer.make_train_step
     mgr_cls = ckpt_mod.CheckpointManager
 
@@ -1083,6 +1114,7 @@ def _instrument_training(trainer, ckpt_mod, record: dict) -> None:
         record["restores"].append(time.perf_counter() - t0)
         return out
     mgr_cls.save, mgr_cls.restore_latest = timed_save, timed_restore
+    return record
 
 
 def _gpu_cluster(KsaCluster):
@@ -1094,22 +1126,29 @@ def _gpu_cluster(KsaCluster):
                       agent_kw=dict(heartbeat_interval_s=0.2))
 
 
-def _profile_training(train_step_mod, trainer, ckpt_mod, data, cfg,
-                      path: str) -> tuple[dict | None, float]:
-    """The step-24 checkpoint restored on this thread (timed), one warm-up
-    step, then PROFILE_TRAIN_STEPS steps traced with torch.profiler. Done
-    outside the campaign: stopping the profiler parses ~9000 host ops a
-    step while holding the GIL, which would starve the agents' loops."""
+def _profile_training(train_step_mod, trainer, ckpt_mod, data, cfg, run,
+                      path: str | None) -> tuple[dict | None, float | None]:
+    """The campaign's last checkpoint restored on this thread (timed; with
+    no path, a fresh state drawn on the card instead), one warm-up step,
+    then PROFILE_TRAIN_STEPS steps traced with torch.profiler. Done outside
+    the campaign: stopping the profiler parses ~9000 host ops a step while
+    holding the GIL, which would starve the agents' loops."""
     ocfg = trainer._ocfg_from_params({})
     t0 = time.perf_counter()
-    state, _ = ckpt_mod.restore_checkpoint(
-        path, train_step_mod.train_state_shapes(cfg, ocfg), device="cuda")
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
+    if path is None:
+        state = train_step_mod.init_train_state(
+            cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        restore_s = None
+    else:
+        state, _ = ckpt_mod.restore_checkpoint(
+            path, train_step_mod.train_state_shapes(cfg, ocfg),
+            device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
     step = train_step_mod.make_train_step(cfg, ocfg)
-    first = TRAIN["total_steps"]
+    first = run["total_steps"]
     batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
-        cfg, 0, s, batch=TRAIN["batch"], seq=TRAIN["seq"]).items()}
+        cfg, 0, s, batch=run["batch"], seq=run["seq"]).items()}
         for s in range(first, first + 1 + PROFILE_TRAIN_STEPS)]
     state, _ = step(state, batches[0])
     torch.cuda.synchronize()
@@ -1128,67 +1167,109 @@ def _profile_training(train_step_mod, trainer, ckpt_mod, data, cfg,
                          PROFILE_TRAIN_STEPS), restore_s
 
 
-def _gpu_worker(c, ResourceProfile):
-    return c.add_worker(slots=1, profile=ResourceProfile(cpus=2, gpus=1,
-                                                         mem_mb=TRAIN_MEM_MB))
+def _gpu_worker(c, ResourceProfile, run):
+    return c.add_worker(slots=1, profile=ResourceProfile(
+        cpus=2, gpus=1, mem_mb=run["mem_mb"]))
 
 
-def _campaign(trainer, c, ckpt_dir, total_steps, chunk_steps):
+def _campaign(trainer, c, ckpt_dir, run):
     return trainer.TrainCampaign(
-        c.broker, c.submitter, c.monitor, arch=TRAIN_ARCH,
-        ckpt_dir=str(ckpt_dir), total_steps=total_steps,
-        chunk_steps=chunk_steps, batch=TRAIN["batch"], seq=TRAIN["seq"],
-        timeout_s=900.0, smoke=False, device="cuda", mem_mb=TRAIN_MEM_MB)
+        c.broker, c.submitter, c.monitor, arch=run["arch"],
+        ckpt_dir=str(ckpt_dir), total_steps=run["total_steps"],
+        chunk_steps=run["chunk_steps"], batch=run["batch"], seq=run["seq"],
+        timeout_s=900.0, smoke=False, device="cuda", mem_mb=run["mem_mb"])
 
 
-def phase_training(ssd, trainer, train_step_mod, ckpt_mod, data, configs,
-                   KsaCluster, ResourceProfile, workdir: Path) -> dict:
-    cfg = configs.get_config(TRAIN_ARCH)
-    n_ssd = cfg.layer_kinds().count("ssd")
-    tokens_per_step = TRAIN["batch"] * TRAIN["seq"]
-    log(f"  {cfg.name}: {cfg.n_layers} layers ({n_ssd} ssd), d_model "
-        f"{cfg.d_model}, d_state {cfg.ssm.d_state}, head_dim "
-        f"{cfg.ssm.head_dim}, {cfg.ssd_heads} SSD heads, d_conv "
-        f"{cfg.ssm.d_conv}, chunk {cfg.ssm.chunk_size}, vocab "
-        f"{cfg.vocab_size}, tied embeddings, {cfg.dtype} params with an "
-        f"fp32 master; batch {TRAIN['batch']} x {TRAIN['seq']} tokens")
-    record = {"steps": [], "saves": [], "restores": []}
-    _instrument_training(trainer, ckpt_mod, record)
+def _describe(cfg, run) -> str:
+    kinds = cfg.layer_kinds()
+    if "ssd" in kinds:
+        mix = (f"{kinds.count('ssd')} ssd; d_state {cfg.ssm.d_state}, "
+               f"head_dim {cfg.ssm.head_dim}, {cfg.ssd_heads} SSD heads, "
+               f"d_conv {cfg.ssm.d_conv}, chunk {cfg.ssm.chunk_size}")
+    else:
+        mix = (f"{kinds.count('local')} local with window "
+               f"{cfg.window_size}, {kinds.count('attn')} global; "
+               f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV head(s) of "
+               f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+    return (f"{cfg.name}: {cfg.n_layers} layers ({mix}), d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
+            f"{cfg.dtype} params with an fp32 master; batch {run['batch']} x "
+            f"{run['seq']} tokens")
+
+
+def _log_chunk_errors(c, run) -> None:
+    """The errors the campaign's chunk tasks reported, last attempt first."""
+    for start in range(0, run["total_steps"], run["chunk_steps"]):
+        e = c.monitor.task(f"train-{run['arch']}-s{start:06d}")
+        for err in reversed(e.errors if e is not None else []):
+            log(f"  chunk at step {start}, attempt {err['attempt']}: "
+                f"{str(err['error'])[-3000:]}")
+
+
+def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
+                   configs, KsaCluster, ResourceProfile, record: dict,
+                   workdir: Path, profile_from_checkpoint: bool = True
+                   ) -> dict:
+    """A TrainCampaign at full width on a GPU worker. ``counted`` maps each
+    kernel wrapper's name to (wrapper, launches expected per step): every
+    count is set to 0 just before the campaign and read just after."""
+    cfg = configs.get_config(run["arch"])
+    tokens_per_step = run["batch"] * run["seq"]
+    log(f"  {_describe(cfg, run)}")
+    for k in record:
+        record[k].clear()
     with _gpu_cluster(KsaCluster) as c:
-        _gpu_worker(c, ResourceProfile)
-        camp = _campaign(trainer, c, workdir / "run1",
-                         TRAIN["total_steps"], TRAIN["chunk_steps"])
-        ssd.ssd_scan.launches = 0          # count only the main path's run
+        _gpu_worker(c, ResourceProfile, run)
+        camp = _campaign(trainer, c, workdir, run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn, _ in counted.values():
+            fn.launches = 0                # count only the main path's run
         t0 = time.perf_counter()
-        out = camp.run(wait_timeout=1200.0)
+        try:
+            out = camp.run(wait_timeout=1200.0)
+        except TimeoutError:
+            _log_chunk_errors(c, run)
+            raise
         makespan = time.perf_counter() - t0
-        launches = ssd.ssd_scan.launches
-    steps = TRAIN["total_steps"]
+        launches = {name: fn.launches for name, (fn, _) in counted.items()}
+        peak = torch.cuda.max_memory_allocated()
+    steps = run["total_steps"]
+    chunks = -(-steps // run["chunk_steps"])
     losses = [r["loss"] for r in camp.chunk_results]
-    assert out["final_step"] == steps and out["chunks"] == 3, out
+    assert out["final_step"] == steps and out["chunks"] == chunks, out
     assert all(np.isfinite(losses)), losses
-    assert launches == n_ssd * steps, \
-        f"{launches} ssd_scan launches, expected {n_ssd} x {steps} steps"
-    latest = ckpt_mod.CheckpointManager(workdir / "run1").latest()
+    for name, (_, per_step) in counted.items():
+        assert launches[name] == per_step * steps, \
+            f"{launches[name]} {name} launches, expected {per_step} x {steps}"
+    latest = ckpt_mod.CheckpointManager(workdir).latest()
     assert latest is not None and latest[0] == steps, latest
     step_ms = statistics.median(record["steps"]) * 1e3
     log(f"  campaign: {steps} steps in {out['chunks']} chunks of "
-        f"{TRAIN['chunk_steps']}, makespan {makespan:.2f} s; loss by chunk "
+        f"{run['chunk_steps']}, makespan {makespan:.2f} s; loss by chunk "
         f"{[round(x, 4) for x in losses]}; median step {step_ms:.2f} ms "
         f"(host clock, synchronised, {len(record['steps'])} steps), "
         f"{1e3 / step_ms:.2f} steps/s, {tokens_per_step * 1e3 / step_ms:.0f} "
         f"tokens/s; steps/s by chunk (with restore and save) "
         f"{[round(r['steps_per_s'], 3) for r in camp.chunk_results]}")
-    log(f"  ssd_scan launches: {launches} = {n_ssd} x {steps} steps  ok")
+    log("  launches: " + ", ".join(
+        f"{name} {launches[name]} = {per} x {steps} steps"
+        for name, (_, per) in counted.items()) + "  ok")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  peak device memory (max_memory_allocated) {peak / 1e9:.2f} GB of "
+        f"the card's {total / 1e9:.2f} GB")
     for step, sec, size in record["saves"]:
         log(f"  checkpoint save at step {step}: {sec:.2f} s, {size / 1e9:.3f} "
-            f"GB on disk")
+            f"GB on disk ({size / sec / 1e6:.0f} MB/s)")
     log(f"  checkpoint restores: {[round(x, 2) for x in record['restores']]} "
         f"s; checkpoint at step {latest[0]}: {latest[1].split('/')[-1]}")
-    share, restore_s = _profile_training(train_step_mod, trainer, ckpt_mod,
-                                         data, cfg, latest[1])
-    log(f"  step-{latest[0]} checkpoint restored onto the card in "
-        f"{restore_s:.2f} s (main thread)")
+    share, restore_s = _profile_training(
+        train_step_mod, trainer, ckpt_mod, data, cfg, run,
+        latest[1] if profile_from_checkpoint else None)
+    if restore_s is not None:
+        log(f"  step-{latest[0]} checkpoint restored onto the card in "
+            f"{restore_s:.2f} s (main thread)")
     if share is None or share["busy"] is None:
         log("  torch.profiler: no device time recorded (busy share not "
             "measured)")
@@ -1204,8 +1285,8 @@ def phase_training(ssd, trainer, train_step_mod, ckpt_mod, data, configs,
         for name, ms in share["top"]:
             log(f"    {ms:8.4f}  {name[:90]}")
     return {"launches": launches, "losses": losses, "makespan_s": makespan,
-            "step_ms": step_ms, "device": share, "saves": record["saves"],
-            "restores": record["restores"]}
+            "step_ms": step_ms, "device": share, "saves": list(record["saves"]),
+            "restores": list(record["restores"]), "peak_bytes": peak}
 
 
 def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
@@ -1214,9 +1295,8 @@ def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
     monitor's watchdog resubmits; the step-8 checkpoint must equal the
     uninterrupted run's, leaf by leaf."""
     with _gpu_cluster(KsaCluster) as c:
-        a1 = _gpu_worker(c, ResourceProfile)
-        camp = _campaign(trainer, c, workdir / "run2",
-                         RECOVERY["total_steps"], RECOVERY["chunk_steps"])
+        a1 = _gpu_worker(c, ResourceProfile, RECOVERY)
+        camp = _campaign(trainer, c, workdir / "run2", RECOVERY)
         box: dict = {}
 
         def drive():
@@ -1235,7 +1315,7 @@ def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
             raise AssertionError("chunk 2 never started")
         a1.crash()
         t_crash = time.perf_counter()
-        _gpu_worker(c, ResourceProfile)
+        _gpu_worker(c, ResourceProfile, RECOVERY)
         th.join(timeout=1200)
         assert "out" in box, "campaign did not finish after the crash"
         resub = c.monitor.resubmissions
@@ -1363,6 +1443,271 @@ def phase_train_exactness(train_step_mod, configs, optim, tree) -> dict:
     return {"loss_err": loss_err, "param_err": worst}
 
 
+# -- the attention training path (phases 18-22) -------------------------------
+
+ATTN_ARCH = "gemma3_1b"
+FA_ATOL_F32, FA_ATOL_BF16 = 2e-5, 2e-2      # tests/test_kernels.py
+FA_GRAD_ATOL = 1e-5
+# gemma3-1b at full width: 14 GB of state (bf16 params, fp32 master, m, v);
+# a chunk's host memory holds a copy of it plus the shard buffers of its
+# checkpoint while they are compressed. The batch is cut from the
+# train_4k shape's 256 sequences to what one card holds: one (with two,
+# the fp32 logits of 8192 x 262144 tokens and their gradients, 8.6 GB
+# each, take the card out of memory).
+ATTN_TRAIN = dict(arch=ATTN_ARCH, batch=1, seq=4096, total_steps=8,
+                  chunk_steps=4, mem_mb=65536)
+FA_TIMED = ("gemma3_1b_global", "gemma3_1b_local", "stablelm_1_6b")
+
+
+def phase_fa_build(fa, pending) -> None:
+    report_build("flash_attention", pending.result())
+    fa._library()
+
+
+def _fa_kw(case) -> dict:
+    return dict(causal=case["causal"], window=case["window"],
+                q_offset=case["q_offset"])
+
+
+def fa_model_inputs(shape: dict, seed: int = 0) -> list:
+    """q, k, v of one whole-sequence attention call at a model's width in
+    bf16, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, d = shape["b"], shape["s"], shape["d"]
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+            for h in (shape["h"], shape["kh"], shape["kh"])]
+
+
+def phase_fa_check(fa, fc) -> dict:
+    """The kernel against its plain version on the card: every case in f32
+    and bf16, rows with no valid key, the model shapes in bf16 against the
+    plain version in float32, determinism, and FlashAttentionFn's gradients
+    against autograd through the plain version."""
+    err = 0.0
+    for name, case in fc.kernel_cases().items():
+        line = []
+        for dtype, tol in ((torch.float32, case["tol"]),
+                           (torch.bfloat16, FA_ATOL_BF16)):
+            q, k, v = (torch.from_numpy(case[n]).cuda().to(dtype)
+                       for n in ("q", "k", "v"))
+            got = fa.flash_attention(q, k, v, **_fa_kw(case))
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            **_fa_kw(case))
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+            e = float((got.float() - want).abs().max())
+            if dtype == torch.float32:
+                err = max(err, e)
+            line.append(f"{str(dtype)[6:]} {e:.3g} (tol {tol:g})")
+        log(f"  {name:<32} q {tuple(case['q'].shape)} k "
+            f"{tuple(case['k'].shape)} offset {case['q_offset']}: max "
+            f"|kernel - plain| {', '.join(line)}  ok")
+    case, empty = fc.empty_rows_case()
+    q, k, v = (torch.from_numpy(case[n]).cuda() for n in ("q", "k", "v"))
+    got = fa.flash_attention(q, k, v, **_fa_kw(case))
+    want = fa.flash_attention_plain(q, k, v, **_fa_kw(case))
+    keep = [i for i in range(q.shape[1]) if i not in empty]
+    assert bool((got[:, empty] == 0).all()), "rows without keys not zero"
+    torch.testing.assert_close(got[:, keep], want[:, keep], atol=FA_ATOL_F32,
+                               rtol=FA_ATOL_F32)
+    log(f"  rows without a valid key (positions {empty[0]}-{empty[-1]} of "
+        f"{q.shape[1]}, Sk {k.shape[1]}, window {case['window']}): exactly "
+        f"0; the other rows max |kernel - plain| "
+        f"{float((got[:, keep] - want[:, keep]).abs().max()):.3g}  ok")
+
+    main_err = {}
+    for name, shape in fc.MODEL_SHAPES.items():
+        q, k, v = fa_model_inputs(shape)
+        kw = dict(causal=shape["causal"], window=shape["window"])
+        got = fa.flash_attention(q, k, v, **kw)
+        if name == "gemma3_1b_global":
+            again = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), "kernel not deterministic"
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        torch.testing.assert_close(got.float(), want, atol=FA_ATOL_BF16,
+                                   rtol=FA_ATOL_BF16)
+        main_err[name] = float((got.float() - want).abs().max())
+        share = float(((got.float() - want).abs()
+                       / (FA_ATOL_BF16 + FA_ATOL_BF16 * want.abs())).max())
+        log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
+            f"K={shape['kh']} D={shape['d']} causal={shape['causal']} "
+            f"window={shape['window']}, bf16: max |kernel - plain fp32| "
+            f"{main_err[name]:.3g} (|out| max {float(want.abs().max()):.3g}; "
+            f"{share:.2f} of the 2e-2 + 2e-2 |out| limit used)"
+            + ("; two runs bit-identical" if name == "gemma3_1b_global"
+               else "") + "  ok")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, case in (("window 40", fc.random_case(31, 2, 96, 96, 6, 2, 32,
+                                                     window=40)),
+                       ("causal, D 80", fc.random_case(32, 1, 70, 70, 4, 4,
+                                                       80)),
+                       ("offset", fc.offset_cases()["offset"])):
+        w = torch.randn(case["q"].shape, generator=gen, device="cuda")
+
+        def grads(fn):
+            q, k, v = (torch.from_numpy(case[n]).cuda().requires_grad_(True)
+                       for n in ("q", "k", "v"))
+            out = fn(q, k, v, kv_chunk=32, **_fa_kw(case))
+            return torch.autograd.grad((out * w).sum(), (q, k, v))
+        got, want = grads(fa.flash_attention), grads(fa.flash_attention_plain)
+        gerr = 0.0
+        for g, wg in zip(got, want):
+            torch.testing.assert_close(g, wg, atol=FA_GRAD_ATOL,
+                                       rtol=FA_GRAD_ATOL)
+            gerr = max(gerr, float((g - wg).abs().max()))
+        log(f"  FlashAttentionFn gradients, {name:<12}: q, k, v max "
+            f"|autograd(kernel) - autograd(plain)| {gerr:.3g} (limit "
+            f"{FA_GRAD_ATOL:g})  ok")
+    return {"max_abs_err": max(err, *main_err.values()), "f32_err": err,
+            "main_err": main_err}
+
+
+def attention_bound(b, sq, sk, h, kh, d, causal, window, elem,
+                    q_offset=0) -> tuple[float, str, dict]:
+    """Least time for one attention call: the two products over the live
+    (query head, key) pairs, 4 D operations each, at the bf16 tensor-core
+    rate, against Q, K, V read once and O written once at 3.35 TB/s."""
+    pos = q_offset + np.arange(sq)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, int)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * h
+    ops = 4 * d * pairs
+    nbytes = elem * d * (2 * b * sq * h + 2 * b * sk * kh)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / BF16_FLOP_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "ops": ops,
+                                     "pairs": pairs, "bytes_ms": t_bytes,
+                                     "ops_ms": t_ops}
+
+
+def _sdpa_call(q, k, v, shape):
+    """scaled_dot_product_attention on (B, H, S, D) copies: is_causal for a
+    causal shape, a boolean band for a window, GQA by enable_gqa."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    s = q.shape[1]
+    mask, causal = None, shape["causal"]
+    if shape["window"] is not None:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                             - shape["window"])
+        causal = False
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal,
+                    enable_gqa=shape["h"] != shape["kh"])
+    return call
+
+
+def _sdpa_backend(call) -> str:
+    """The backend one SDPA call dispatched to: the name of the ATen op
+    it ran (``aten::_scaled_dot_product_<backend>_attention``)."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    with prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.name.startswith("aten::_scaled_dot_product_")
+             or e.name.startswith("aten::_efficient_attention")
+             or e.name.startswith("aten::_flash_attention")]
+    return names[0] if names else "not recorded"
+
+
+def phase_fa_timing(fa, fc) -> dict:
+    out = {}
+    for name in FA_TIMED:
+        shape = fc.MODEL_SHAPES[name]
+        q, k, v = fa_model_inputs(shape, seed=1)
+        kw = dict(causal=shape["causal"], window=shape["window"])
+        ms = _median_flushed(lambda: fa.flash_attention(q, k, v, **kw), 20)
+        plain_ms = _median_flushed(
+            lambda: fa.flash_attention_plain(q, k, v, **kw), 5, warmup=1)
+        library = _sdpa_call(q, k, v, shape)
+        torch.testing.assert_close(
+            library().transpose(1, 2).float(),
+            fa.flash_attention(q, k, v, **kw).float(), atol=FA_ATOL_BF16,
+            rtol=FA_ATOL_BF16)
+        library_ms = _median_flushed(library, 20)
+        backend = _sdpa_backend(library)
+        bound_ms, bound_by, parts = attention_bound(
+            shape["b"], shape["s"], shape["s"], shape["h"], shape["kh"],
+            shape["d"], shape["causal"], shape["window"], q.element_size())
+        log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
+            f"K={shape['kh']} D={shape['d']} window={shape['window']} bf16: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+            f"{library_ms:.4f} ms ({backend}); bound {bound_ms:.4f} ms "
+            f"({bound_by}: {parts['ops'] / 1e9:.2f} GFLOP over "
+            f"{parts['pairs']} live pairs -> {parts['ops_ms']:.4f} ms at "
+            f"the bf16 rate, {parts['bytes'] / 1e6:.1f} MB -> "
+            f"{parts['bytes_ms']:.4f} ms); {bound_ms / ms:.2%} of the bound, "
+            f"{parts['ops'] / ms / 1e9:.1f} TFLOP/s")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_backend": backend, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "gflop": parts["ops"] / 1e9,
+                     "shape": shape}
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
+    """gemma3-1b at full width cut to 2 layers, one local and one global,
+    float32, one train step of batch 2 x 768 (past the 512-key window) on
+    the card and on the CPU (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(ATTN_ARCH).with_(
+        n_layers=2, layer_pattern=("local", "attn"), dtype="float32")
+    # eps as in tests/test_torch_train.py and phase 17
+    ocfg = optim.OptimizerConfig(lr=1e-3, eps=1e-5, warmup_steps=0,
+                                 schedule="constant", weight_decay=0.1)
+    state = train_step_mod.init_train_state(
+        cfg, ocfg, torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.RandomState(6)
+    tok = rng.randint(0, cfg.vocab_size, (2, 769))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(tok[:, 1:].astype(np.int32))}
+    step = train_step_mod.make_train_step(cfg, ocfg)
+    on_card = tree.tree_map(lambda t: t.cuda(), state)
+    before = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    got, gm = step(on_card, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    assert fa.flash_attention.launches == before + 2, \
+        "the card's step skipped the kernel"
+    t0 = time.perf_counter()
+    want, wm = step(state, batch)
+    t_cpu = time.perf_counter() - t0
+    loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+    gn_err = abs(float(gm["grad_norm"]) - float(wm["grad_norm"]))
+    assert loss_err <= 1e-5 * abs(float(wm["loss"])), loss_err
+    assert gn_err <= 1e-5 * abs(float(wm["grad_norm"])), gn_err
+    worst, where = 0.0, ""
+    for (name, g), w in zip(tree.paths(got.params), tree.leaves(want.params)):
+        e = float((g.cpu() - w).abs().max())
+        if e > worst:
+            worst, where = e, name
+    assert worst <= 1e-5, (worst, where)
+    log(f"  {cfg.name} cut to 2 layers {cfg.layer_pattern}, float32, batch 2 "
+        f"x 768: loss card {float(gm['loss']):.6f} CPU "
+        f"{float(wm['loss']):.6f} (|diff| {loss_err:.3g}, limit 1e-5 "
+        f"relative); grad norm {float(wm['grad_norm']):.6g}, |diff| "
+        f"{gn_err:.3g} (limit 1e-5 relative); updated params max |card - "
+        f"CPU| {worst:.3g} at {where} (limit 1e-5); step {t_card:.2f} s "
+        f"card, {t_cpu:.2f} s CPU  ok")
+    return {"loss_err": loss_err, "grad_norm_err": gn_err,
+            "param_err": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -1374,6 +1719,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
+    import _flash_attention_cases as fc
     import _flash_decode_cases as fdc
     import _ssd_cases as sc
     from repro_torch import (checkpoint, configs, data, models, optim, serve,
@@ -1384,6 +1730,7 @@ def main() -> int:
     from repro_torch.cluster import KsaCluster
     from repro_torch.core import ResourceProfile
     from repro_torch.kernels import build, writhe
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd
 
@@ -1391,9 +1738,9 @@ def main() -> int:
     t_start = time.perf_counter()
     log("== 1. environment")
     smi = phase_environment(build)
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         log("== 2. build")
-        flash_build, ssd_build = phase_build(build, writhe, pool)
+        flash_build, ssd_build, fa_build = phase_build(build, writhe, pool)
         log("== 3. kernel against its plain version on the card")
         check_err = phase_check(knots, writhe)
         phase_parity(knots, writhe)
@@ -1432,12 +1779,16 @@ def main() -> int:
     ssd_time = phase_ssd_timing(ssd)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
+    record = _instrument_training(trainer, checkpoint)
     try:
         log(f"== 15. training main path: TrainCampaign on KsaCluster, "
             f"{TRAIN_ARCH} at full width, {TRAIN['total_steps']} steps")
-        trained = phase_training(ssd, trainer, train_step_mod, checkpoint,
-                                 data, configs, KsaCluster, ResourceProfile,
-                                 workdir)
+        trained = phase_training(
+            TRAIN, {"ssd_scan": (ssd.ssd_scan, configs.get_config(
+                TRAIN_ARCH).layer_kinds().count("ssd")),
+                    "flash_attention": (fa.flash_attention, 0)},
+            trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
+            ResourceProfile, record, workdir / "run1")
         log("== 16. recovery at full width: an agent crashed mid-chunk")
         recovered = phase_recovery(trainer, checkpoint, KsaCluster,
                                    ResourceProfile, workdir)
@@ -1445,9 +1796,35 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     log("== 17. one train step on the card and on the CPU, float32")
     phase_train_exactness(train_step_mod, configs, optim, tree)
+    torch.cuda.empty_cache()
+    t_attn = time.perf_counter()
+    log("== 18. build of the flash-attention kernel")
+    phase_fa_build(fa, fa_build)
+    log("== 19. flash-attention kernel against its plain version on the card")
+    fa_err = phase_fa_check(fa, fc)
+    log("== 20. flash-attention timing (median, CUDA events, L2 flushed)")
+    fa_time = phase_fa_timing(fa, fc)
+    try:
+        log(f"== 21. attention training main path: TrainCampaign on "
+            f"KsaCluster, {ATTN_ARCH} at full width, "
+            f"{ATTN_TRAIN['total_steps']} steps")
+        attn_trained = phase_training(
+            ATTN_TRAIN, {"flash_attention": (fa.flash_attention,
+                                             configs.get_config(
+                                                 ATTN_ARCH).n_layers),
+                         "ssd_scan": (ssd.ssd_scan, 0)},
+            trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
+            ResourceProfile, record, workdir / "attn",
+            profile_from_checkpoint=False)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("== 22. one gemma3-1b train step on the card and on the CPU, float32")
+    phase_attn_exactness(fa, train_step_mod, configs, optim, tree)
     t_end = time.perf_counter()
     log(f"command time: phases 1-6 {t_serve - t_start:.1f} s, phases 7-11 "
-        f"{t_train - t_serve:.1f} s, phases 12-17 {t_end - t_train:.1f} s")
+        f"{t_train - t_serve:.1f} s, phases 12-17 {t_attn - t_train:.1f} s, "
+        f"phases 18-22 {t_end - t_attn:.1f} s, all {t_end - t_start:.1f} s")
 
     kernels = [{
         "name": "writhe_map",
@@ -1499,7 +1876,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
-        "launches": trained["launches"],
+        "launches": trained["launches"]["ssd_scan"],
         "max_abs_err": ssd_err["max_abs_err"],
         "ms": ssd_time["ms"],
         "plain_ms": ssd_time["plain_ms"],
@@ -1507,9 +1884,35 @@ def main() -> int:
         "bound_by": ssd_time["bound_by"],
         "library_ms": None,   # no single PyTorch call computes the SSD scan
         "shape": dict(sc.MAIN_SHAPE, dtype="bfloat16"),
-        "launches_per_step": trained["launches"] // TRAIN["total_steps"],
+        "launches_per_step": (trained["launches"]["ssd_scan"]
+                              // TRAIN["total_steps"]),
         "train_step_ms": trained["step_ms"],
         "recovery_bitwise": recovered["bitwise"],
+        "check": "pass",
+    })
+    main_fa = fa_time["gemma3_1b_global"]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:119",
+        "launches": attn_trained["launches"]["flash_attention"],
+        "max_abs_err": fa_err["max_abs_err"],
+        "ms": main_fa["ms"],
+        "plain_ms": main_fa["plain_ms"],
+        "bound_ms": main_fa["bound_ms"],
+        "bound_by": main_fa["bound_by"],
+        # scaled_dot_product_attention, is_causal and enable_gqa
+        "library_ms": main_fa["library_ms"],
+        "library_backend": main_fa["library_backend"],
+        "shape": dict(main_fa["shape"], dtype="bfloat16",
+                      case="gemma3_1b_global"),
+        "local": fa_time["gemma3_1b_local"],
+        "stablelm": fa_time["stablelm_1_6b"],
+        "max_abs_err_f32": fa_err["f32_err"],
+        "launches_per_step": (attn_trained["launches"]["flash_attention"]
+                              // ATTN_TRAIN["total_steps"]),
+        "train_step_ms": attn_trained["step_ms"],
         "check": "pass",
     })
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,13 @@ for a CPU tensor:
   through ``decode_attention`` and ``decode_attention_paged``;
 * ``ssd.ssd_scan`` — the Mamba-2 chunked SSD scan with initial and final
   state (``csrc/ssd.cu``, CUDA C++ for ``sm_90a``; its gradient through the
-  plain version), reached by the model through ``models.ssd.ssd_chunked``.
+  plain version), reached by the model through ``models.ssd.ssd_chunked``;
+* ``flash_attention.flash_attention`` — whole-sequence GQA attention,
+  causal, sliding-window or bidirectional (``csrc/flash_attention.cu``,
+  CUDA C++ for ``sm_90a``; its gradient through the plain version, the
+  model's ``chunked_attention``), reached by the model's whole-sequence
+  forward (training, encoder-only) through ``models.attention.
+  attention_block`` and through ``ops.attention``.
 
 ``build.py`` compiles the ``csrc/*.cu`` sources with ``nvcc`` at first use.
 """

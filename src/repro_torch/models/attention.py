@@ -10,7 +10,11 @@ forward and decode:
 * ``window`` gives sliding-window (local) attention: the banded path for
   whole sequences, and a ring-buffer cache of ``window`` rows for decode;
 * ``decode_kernel="flash"`` sends single-token decode to the flash-decode
-  kernels (:mod:`repro_torch.kernels.flash_decode`), dense and paged.
+  kernels (:mod:`repro_torch.kernels.flash_decode`), dense and paged;
+* the whole-sequence forward without caches (training, encoder-only) goes
+  through :func:`repro_torch.kernels.flash_attention.flash_attention`: the
+  flash-attention kernel for a CUDA tensor, :func:`chunked_attention` with
+  the same arguments for a CPU tensor.
 
 Caches are written **in place**: the new token's K/V is stored into the
 cache tensors and the returned cache dict holds the same tensors. (The
@@ -27,6 +31,8 @@ import math
 from typing import Any
 
 import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
 
 from .config import ModelConfig
 from .layers import rmsnorm, rope_angles, rotate, torch_dtype
@@ -229,10 +235,12 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         k = rotate(k, cos, sin)
 
     if cache is None:
-        out = chunked_attention(q, k, v, q_offset=0,
-                                causal=not cfg.encoder_only,
-                                window=window, kv_chunk=cfg.kv_chunk,
-                                score_dtype=torch_dtype(cfg.score_dtype))
+        # whole sequence (training, encoder-only): the flash-attention
+        # kernel on the card; on the CPU its plain version, which is
+        # chunked_attention with these arguments
+        out = flash_attention(q, k, v, causal=not cfg.encoder_only,
+                              window=window, kv_chunk=cfg.kv_chunk,
+                              score_dtype=torch_dtype(cfg.score_dtype))
         y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
         return y, None
 

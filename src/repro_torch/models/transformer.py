@@ -2,7 +2,9 @@
 
 Port of ``repro/models/transformer.py`` for the ``attn``/``local`` layer
 kinds with a dense MLP and the Mamba-2 ``ssd`` kind (with an MLP only where
-the reference's ``_has_mlp`` rule gives one: never for ``d_ff = 0``).
+the reference's ``_has_mlp`` rule gives one: never for ``d_ff = 0``), with
+the stub modality frontends: ``audio_frames`` (encoder-only, frames in
+place of tokens) and ``vit_patches`` (projected patches before the text).
 Layers are generated from ``cfg.layer_pattern`` cycled over ``n_layers``;
 the parameters and caches of the full periods are
 stacked on a leading ``layers`` axis, as in the reference, so one
@@ -12,8 +14,8 @@ that indexes it. Remainder layers (``n_layers % period``) follow under
 ``"tail"``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``rglru`` kind (Queue 1, item 5), MoE, MLA and the frontends (item 7),
-and ``dist`` (item 8).
+the ``rglru`` kind (Queue 1, item 5), MoE and MLA (item 7), and ``dist``
+(item 8).
 """
 from __future__ import annotations
 
@@ -24,14 +26,13 @@ import torch
 from .attention import attention_block, attention_spec, init_kv_cache
 from .config import ModelConfig
 from .layers import (embed, embedding_spec, mlp, mlp_spec, rmsnorm,
-                     rmsnorm_spec, unembed)
-from .params import stack_specs
+                     rmsnorm_spec, torch_dtype, unembed)
+from .params import ParamSpec, stack_specs
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
 _RECURRENT = "the rglru layer comes with the rest of the recurrent slice: " \
              "ROADMAP.md Queue 1, item 5"
-_MOE_MLA_FRONTEND = "MoE, MLA and the modality frontends come with a later " \
-                    "slice: ROADMAP.md Queue 1, item 7"
+_MOE_MLA = "MoE and MLA come with a later slice: ROADMAP.md Queue 1, item 7"
 _SHARDED = "sharded execution (dist) comes with the sharded slice: " \
            "ROADMAP.md Queue 1, item 8"
 
@@ -41,8 +42,8 @@ def _check_supported(cfg: ModelConfig, kind: str | None = None) -> None:
         raise NotImplementedError(_RECURRENT)
     if kind is not None and kind not in ("attn", "local", "ssd"):
         raise ValueError(f"unknown layer kind {kind}")
-    if cfg.moe is not None or cfg.mla is not None or cfg.frontend is not None:
-        raise NotImplementedError(_MOE_MLA_FRONTEND)
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(_MOE_MLA)
 
 
 def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -109,6 +110,12 @@ def model_spec(cfg: ModelConfig) -> dict:
     if cfg.n_remainder:
         spec["tail"] = {str(i): block_spec(cfg, cfg.layer_pattern[i])
                         for i in range(cfg.n_remainder)}
+    if cfg.frontend is not None:
+        spec["frontend"] = {
+            "w": ParamSpec((cfg.frontend.input_dim, cfg.d_model),
+                           ("ff", "embed"), init="lecun"),
+            "b": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        }
     return spec
 
 
@@ -139,6 +146,28 @@ def _apply_period(params_p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     return x, aux
 
 
+def _project(params: dict, cfg: ModelConfig, embeds: torch.Tensor
+             ) -> torch.Tensor:
+    """The frontend's linear map of (B, S, input_dim) features, in the
+    working dtype."""
+    dt = torch_dtype(cfg.dtype)
+    return embeds.to(dt) @ params["frontend"]["w"] + params["frontend"]["b"]
+
+
+def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict
+                  ) -> tuple[torch.Tensor, int]:
+    """(the stack's input (B, S, d), the count of prefix positions that
+    the logits leave out)."""
+    kind = cfg.frontend.kind if cfg.frontend is not None else None
+    if kind == "audio_frames":
+        return _project(params, cfg, batch["embeds"]), 0
+    x = embed(params["embed"], cfg, batch["tokens"])
+    if kind == "vit_patches" and batch.get("embeds") is not None:
+        x_img = _project(params, cfg, batch["embeds"])
+        return torch.cat([x_img, x], dim=1), x_img.shape[1]
+    return x, 0
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             caches: dict | None = None,
             cache_index: torch.Tensor | None = None,
@@ -148,17 +177,21 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Run the stack.
 
-    ``batch``: {"tokens": (B, S) int}. ``caches``: {"periods": stacked
-    caches, "tail": {...}} or None; decode writes them in place and returns
-    the same tree. ``pages``: (B, pages_per_slot) int32 page table when
-    ``caches`` came from :func:`init_paged_caches` (shared by every paged
-    layer). Returns (logits (B, S, padded_vocab), caches or None, aux_loss).
+    ``batch``: {"tokens": (B, S) int} and/or {"embeds": (B, S, input_dim)}
+    for the frontends: ``audio_frames`` takes frames in place of tokens,
+    ``vit_patches`` puts the projected patches before the text (decode
+    steps carry no patches). ``caches``: {"periods": stacked caches,
+    "tail": {...}} or None; decode writes them in place and returns the same
+    tree. ``pages``: (B, pages_per_slot) int32 page table when ``caches``
+    came from :func:`init_paged_caches` (shared by every paged layer).
+    Returns (logits (B, S, padded_vocab) over the text positions only for
+    a VLM, caches or None, aux_loss).
     """
     _check_supported(cfg)
     if dist is not None:
         raise NotImplementedError(_SHARDED)
     decode = caches is not None
-    x = embed(params["embed"], cfg, batch["tokens"])
+    x, n_prefix = _embed_inputs(params, cfg, batch)
     positions: torch.Tensor | int = cache_index if decode else 0
     aux_total = 0.0
 
@@ -183,6 +216,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             aux_total = aux_total + a
 
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]  # loss/logits over text positions only (VLM)
     aux_total = torch.tensor(aux_total, dtype=torch.float32)
     if return_hidden:
         return x, (caches if decode else None), aux_total

@@ -93,7 +93,10 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
         with torch.enable_grad():
             loss, metrics = _loss_fn(unflatten_as(params, flat), cfg, batch,
                                      aux_w)
-            grads = torch.autograd.grad(loss, flat)
+            # a leaf the loss does not reach (hubert's token embedding: its
+            # frames bypass it) gets zeros, as jax.grad gives
+            grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                        materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, unflatten_as(params, list(grads))
 

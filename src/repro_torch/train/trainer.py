@@ -115,7 +115,10 @@ class TrainChunkComputing(ClusterComputing):
         final_step = start + n_steps
         handle = mgr.async_save(final_step, state,
                                 extra={"loss": loss, "arch": cfg.name})
-        ckpt_path = handle.result(timeout=120)
+        # no 120 s cap on the wait, unlike the reference: a full-width
+        # gemma3-1b checkpoint (12.7 GB at about 100 MB/s) takes longer;
+        # the chunk's own lease timeout bounds a save that never ends
+        ckpt_path = handle.result()
         dt = time.time() - t0
         return {
             "final_step": final_step,

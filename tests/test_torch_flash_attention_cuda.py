@@ -1,0 +1,95 @@
+"""The CUDA flash-attention kernel against its plain PyTorch version, on
+the card.
+
+Marked ``cuda``: they skip where no CUDA device is present. The file imports
+no jax, so it runs on a GPU machine without the JAX reference:
+``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_flash_attention_cuda.py``.
+"""
+import pytest
+import torch
+
+from _flash_attention_cases import (ATOL_BF16, empty_rows_case, kernel_cases,
+                                    random_case)
+from repro_torch.kernels import flash_attention as fa
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def inputs(case, device, dtype=torch.float32, grad=False):
+    return [torch.from_numpy(case[n]).to(device, dtype).requires_grad_(grad)
+            for n in ("q", "k", "v")]
+
+
+def kw(case):
+    return dict(causal=case["causal"], window=case["window"],
+                q_offset=case["q_offset"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("name", sorted(kernel_cases()))
+def test_kernel_matches_plain_on_card(name, dtype, cuda_device):
+    case = kernel_cases()[name]
+    q, k, v = inputs(case, cuda_device, dtype)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw(case))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # against the plain version in float32 on the same (rounded) inputs
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    **kw(case))
+    tol = case["tol"] if dtype == torch.float32 else ATOL_BF16
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_rows_without_keys_are_zero_on_card(cuda_device):
+    case, empty = empty_rows_case()
+    q, k, v = inputs(case, cuda_device)
+    got = fa.flash_attention(q, k, v, **kw(case))
+    want = fa.flash_attention_plain(q, k, v, **kw(case))
+    assert bool((got[:, empty] == 0).all())
+    keep = [i for i in range(q.shape[1]) if i not in empty]
+    torch.testing.assert_close(got[:, keep], want[:, keep], atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 40])
+def test_gradients_through_kernel_on_card(window, cuda_device):
+    case = random_case(31, 2, 96, 96, 6, 2, 32, window=window)
+    w = torch.randn(case["q"].shape, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(1))
+
+    def grads(fn):
+        q, k, v = inputs(case, cuda_device, grad=True)
+        out = fn(q, k, v, window=window, kv_chunk=32)
+        return torch.autograd.grad((out * w).sum(), (q, k, v))
+    for g, want in zip(grads(fa.flash_attention),
+                       grads(fa.flash_attention_plain)):
+        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_on_card(cuda_device):
+    case = random_case(32, 2, 300, 300, 8, 2, 128, window=100)
+    q, k, v = inputs(case, cuda_device, torch.bfloat16)
+    a = fa.flash_attention(q, k, v, **kw(case))
+    b = fa.flash_attention(q, k, v, **kw(case))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_score_dtype_other_than_float32_raises_on_card(cuda_device):
+    case = random_case(33, 1, 16, 16, 2, 1, 16)
+    with pytest.raises(ValueError, match="float32 scores"):
+        fa.flash_attention(*inputs(case, cuda_device),
+                           score_dtype=torch.bfloat16)

@@ -70,12 +70,14 @@ def test_every_module_imports_without_jax_repro_or_msgpack():
 
 
 def test_training_slice_is_covered():
-    """The training slice's subpackages are among the files checked above
-    and import in the blocked interpreter (walk_packages finds them)."""
+    """The training slice's subpackages and the flash-attention kernel's
+    module are among the files checked above and import in the blocked
+    interpreter (walk_packages finds them)."""
     rel = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     for need in ("optim/adamw.py", "optim/schedule.py", "data/synthetic.py",
                  "checkpoint/saver.py", "train/trainer.py", "train/loss.py",
-                 "models/ssd.py", "kernels/ssd.py", "tree.py"):
+                 "models/ssd.py", "kernels/ssd.py", "tree.py",
+                 "kernels/flash_attention.py", "models/attention.py"):
         assert need in rel, need
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
@@ -85,7 +87,8 @@ def test_training_slice_is_covered():
     names = set(out.stdout.split())
     for mod in ("repro_torch.optim", "repro_torch.checkpoint.saver",
                 "repro_torch.data.synthetic", "repro_torch.train.trainer",
-                "repro_torch.kernels.ssd", "repro_torch.models.ssd"):
+                "repro_torch.kernels.ssd", "repro_torch.models.ssd",
+                "repro_torch.kernels.flash_attention"):
         assert mod in names, mod
 
 

@@ -9,6 +9,10 @@
   ``mamba2_130m`` smoke config (Mamba-2 SSD layers, no MLP) for the whole
   sequence, prefill into the caches and decode steps (``ssd_step`` with the
   conv state).
+* The frontends: on the ``hubert_xlarge`` (audio frames, encoder-only,
+  bidirectional) and ``internvl2_1b`` (image patches before the text, G 2)
+  smoke configs the whole-sequence logits equal JAX's within 2e-5, and
+  hubert's encoder prefill (``make_prefill_step``) too.
 * The port's ``init_params`` draws in the target dtype on the target
   device, deterministically per generator.
 """
@@ -38,7 +42,7 @@ from repro_torch.serve import PageAllocator
 
 ATOL = 2e-5
 PORTED = ("stablelm_1_6b", "gemma3_1b", "gemma3_4b", "internlm2_1_8b",
-          "mamba2_130m")
+          "mamba2_130m", "hubert_xlarge", "internvl2_1b")
 NOT_YET = tuple(a for a in jax_configs.ARCHS if a not in PORTED)
 
 
@@ -125,12 +129,17 @@ def test_unembed_reads_the_tied_table_in_place():
 @pytest.fixture(scope="module",
                 params=["stablelm_1_6b", "gemma3_1b", "mamba2_130m"])
 def model(request):
-    arch = request.param
+    return (*_jax_weights(request.param), {})
+
+
+def _jax_weights(arch):
+    """(arch, JAX smoke config, JAX weights, port config, the weights
+    carried across)."""
     jcfg = jax_configs.smoke_config(arch)
     jparams = jax_init_params(jax_model_spec(jcfg), jax.random.PRNGKey(1),
                               jnp.float32)
     params = tree_to_torch(jax.tree.map(np.asarray, jparams), "cpu")
-    return arch, jcfg, jparams, configs.smoke_config(arch), params, {}
+    return arch, jcfg, jparams, configs.smoke_config(arch), params
 
 
 def test_whole_sequence_logits(model):
@@ -266,6 +275,50 @@ def test_prefill_then_decode_matches_reference(model):
         params, torch.from_numpy(nxt), tc, torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+
+
+# ---------------------------------------------------------------------------
+# the frontends: audio frames (encoder-only) and image patches
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["hubert_xlarge", "internvl2_1b"])
+def frontend_model(request):
+    """JAX weights carried across, and a batch of ``batch_at`` (frames for
+    hubert; 8 patches and 96 tokens for internvl2) without its labels."""
+    from repro_torch.data import batch_at
+    arch, jcfg, jparams, cfg, params = _jax_weights(request.param)
+    batch = batch_at(cfg, 4, 0, batch=2, seq=96)
+    batch.pop("labels")
+    return arch, jcfg, jparams, cfg, params, batch
+
+
+def test_whole_sequence_logits_frontends(frontend_model):
+    """S = 96 > kv_chunk: two key chunks, the second ragged; hubert attends
+    both ways without RoPE, internvl2's logits leave out the patches."""
+    arch, jcfg, jparams, cfg, params, batch = frontend_model
+    want, _, _ = jax_forward(jparams, jcfg, {k: jnp.asarray(v)
+                                             for k, v in batch.items()})
+    got, caches, _ = forward(params, cfg, {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})
+    assert caches is None and got.shape == (2, 96, cfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_encoder_prefill_matches_reference(frontend_model):
+    """``make_prefill_step`` of an encoder-only model returns per-frame
+    logits (hubert); a decoder's needs caches (internvl2)."""
+    from repro.train.step import make_prefill_step as jax_prefill
+    from repro_torch.train import make_prefill_step
+    arch, jcfg, jparams, cfg, params, batch = frontend_model
+    if not cfg.encoder_only:
+        assert make_prefill_step(cfg).__name__ == "prefill"
+        return
+    want = jax.jit(jax_prefill(jcfg))(jparams, {k: jnp.asarray(v)
+                                                for k, v in batch.items()})
+    got = make_prefill_step(cfg)(params, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 def test_mamba2_blocks_have_no_mlp():

@@ -2,17 +2,20 @@
 
 * ``lm_loss``, ``lr_at_step`` (every schedule) and ``adamw_update`` (each
   of ``moment_dtype``, ``factored_v``, ``master_dtype``) on the same inputs.
-* ``make_train_step``: three steps on the mamba2 and stablelm smoke configs
-  from JAX-initialised state; loss, grad norm and params within 1e-5 in
+* ``make_train_step``: three steps on the mamba2, stablelm, gemma3 (local
+  and global layers through the flash-attention wrapper), hubert (audio
+  frames, bidirectional) and internvl2 (image patches) smoke configs from
+  JAX-initialised state; loss, grad norm and params within 1e-5 in
   float32, and with ``microbatch=2``.
 * ``batch_at`` gives identical arrays.
-* Checkpoints in both directions: the port writes and JAX restores, JAX
-  writes and the port restores, with the same manifest names; bfloat16
-  leaves keep their bits.
+* Checkpoints in both directions, for mamba2 and gemma3: the port writes
+  and JAX restores, JAX writes and the port restores, with the same
+  manifest names; bfloat16 leaves keep their bits.
 * The port's ``TrainCampaign`` through its ``KsaCluster``: 12 steps with a
   checkpoint at 12, and a crash mid-chunk that recovers with the
   uninterrupted run's loss (the counterparts of
-  ``tests/test_fault_tolerance.py``).
+  ``tests/test_fault_tolerance.py``); and a campaign on the gemma3 smoke
+  config.
 """
 import json
 import threading
@@ -148,8 +151,12 @@ STEP_OPT = dict(lr=2e-3, eps=1e-5, warmup_steps=2, total_steps=10,
                 weight_decay=0.1, schedule="cosine")
 
 
+TRAIN_ARCHS = ["mamba2_130m", "stablelm_1_6b", "gemma3_1b", "hubert_xlarge",
+               "internvl2_1b"]
+
+
 @pytest.mark.parametrize("microbatch", [None, 2])
-@pytest.mark.parametrize("arch", ["mamba2_130m", "stablelm_1_6b"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_steps_match_reference(arch, microbatch):
     jcfg, cfg = jax_configs.smoke_config(arch), configs.smoke_config(arch)
     jo, o = JaxOptimizerConfig(**STEP_OPT), OptimizerConfig(**STEP_OPT)
@@ -180,7 +187,7 @@ def test_train_step_rejects_what_is_not_ported():
 
 
 def test_init_and_shapes_agree_with_reference():
-    for arch in ("mamba2_130m", "stablelm_1_6b"):
+    for arch in TRAIN_ARCHS:
         jcfg, cfg = jax_configs.smoke_config(arch), configs.smoke_config(arch)
         want = jax.eval_shape(lambda: jax_init_train_state(
             jcfg, JaxOptimizerConfig(), jax.random.PRNGKey(0)))
@@ -196,7 +203,7 @@ def test_init_and_shapes_agree_with_reference():
 
 
 def test_batch_at_is_identical():
-    for arch in ("mamba2_130m", "stablelm_1_6b"):
+    for arch in TRAIN_ARCHS:
         for step in (0, 17):
             want = jax_batch_at(jax_configs.smoke_config(arch), 3, step,
                                 batch=4, seq=32)
@@ -221,19 +228,23 @@ def _bits(x) -> np.ndarray:
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
-def _bf16_state():
+def _bf16_state(arch="mamba2_130m"):
     """A bfloat16 TrainState (fp32 master, m, v) a step in, both packages."""
-    jcfg = jax_configs.smoke_config("mamba2_130m").with_(dtype="bfloat16")
+    jcfg = jax_configs.smoke_config(arch).with_(dtype="bfloat16")
     jo = JaxOptimizerConfig(lr=1e-3)
     js = jax_init_train_state(jcfg, jo, jax.random.PRNGKey(2))
     b = jax.tree.map(jnp.asarray, jax_batch_at(jcfg, 0, 0, batch=2, seq=32))
     js, _ = jax.jit(jax_make_train_step(jcfg, jo))(js, b)
-    cfg = configs.smoke_config("mamba2_130m").with_(dtype="bfloat16")
+    cfg = configs.smoke_config(arch).with_(dtype="bfloat16")
     return jcfg, jo, js, cfg, _to_port_state(js)
 
 
-def test_checkpoint_port_writes_jax_restores(tmp_path):
-    jcfg, jo, js, cfg, ts = _bf16_state()
+CKPT_ARCHS = ["mamba2_130m", "gemma3_1b"]
+
+
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_checkpoint_port_writes_jax_restores(tmp_path, arch):
+    jcfg, jo, js, cfg, ts = _bf16_state(arch)
     assert ts.params["embed"]["embedding"].dtype == torch.bfloat16
     path = save_checkpoint(tmp_path / "port", 5, ts, extra={"loss": 1.5})
     jpath = jax_save(tmp_path / "jax", 5, js, extra={"loss": 1.5})
@@ -256,8 +267,9 @@ def test_checkpoint_port_writes_jax_restores(tmp_path):
     assert str(jpath).endswith("ckpt_00000005")
 
 
-def test_checkpoint_jax_writes_port_restores(tmp_path):
-    jcfg, jo, js, cfg, ts = _bf16_state()
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_checkpoint_jax_writes_port_restores(tmp_path, arch):
+    jcfg, jo, js, cfg, ts = _bf16_state(arch)
     path = jax_save(tmp_path, 9, js, extra={"arch": "x"})
     like = train_state_shapes(cfg, OptimizerConfig(lr=1e-3))
     restored, extra = restore_checkpoint(path, like, device="cpu")
@@ -305,10 +317,10 @@ def cluster():
         yield c
 
 
-def _campaign(c, ckpt_dir, total=12, chunk=4):
+def _campaign(c, ckpt_dir, total=12, chunk=4, arch="mamba2_130m"):
     from repro_torch.train.trainer import TrainCampaign
     return TrainCampaign(c.broker, c.submitter, c.monitor,
-                         arch="mamba2_130m", ckpt_dir=str(ckpt_dir),
+                         arch=arch, ckpt_dir=str(ckpt_dir),
                          total_steps=total, chunk_steps=chunk, batch=4,
                          seq=32, timeout_s=90.0, device="cpu")
 
@@ -326,6 +338,28 @@ def test_training_campaign_completes(cluster, tmp_path):
     assert "smoke" not in entry.task.params
     assert (entry.task.resources.gpus, entry.task.resources.mem_mb) == \
         (0, 1024)
+
+
+def test_gemma3_campaign_completes(cluster, tmp_path):
+    """The training main path's model (local and global attention layers
+    through the flash-attention wrapper) as a campaign on the CPU: 8 steps
+    in 2 chunks, restored from the step-4 checkpoint, with the loss of the
+    same 8 steps run in one process."""
+    from repro_torch.train.trainer import _ocfg_from_params
+    cluster.add_worker(slots=1)
+    out = _campaign(cluster, tmp_path / "ckpts", total=8, chunk=4,
+                    arch="gemma3_1b").run(wait_timeout=240.0)
+    assert out["final_step"] == 8 and out["chunks"] == 2
+    assert CheckpointManager(tmp_path / "ckpts").latest()[0] == 8
+    cfg, ocfg = configs.smoke_config("gemma3_1b"), _ocfg_from_params({})
+    state = init_train_state(cfg, ocfg, torch.Generator().manual_seed(0),
+                             "cpu")
+    step = make_train_step(cfg, ocfg)
+    for s in range(8):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in
+                                batch_at(cfg, 0, s, batch=4, seq=32).items()})
+    np.testing.assert_allclose(out["final_loss"], float(m["loss"]),
+                               rtol=1e-6)
 
 
 def test_campaign_chunk_requests():
