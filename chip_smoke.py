@@ -64,19 +64,21 @@ bound. Phases:
    of tests/test_kernels.py (f32 atol/rtol 2e-5, bf16 2e-2), the
    bidirectional case, points of the property sweep, q_offset > 0, rows
    with no valid key (exact zeros), the model shapes (gemma3-1b global and
-   local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in bf16 against the
-   plain version in float32, twice bit-identical, and the autograd
-   function's gradients against autograd through the plain version (1e-5);
+   local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in float32 against
+   the plain version in float32 (2e-5) and in bf16 against it (2e-2),
+   twice bit-identical, and the autograd function's gradients against
+   autograd through the plain version (1e-5);
 20. flash-attention timing at the gemma3-1b global and local shapes of the
-   main path (B=1, S=4096) and the stablelm-1.6b shape (B=2, S=4096),
-   bf16: kernel, plain version,
-   ``scaled_dot_product_attention`` as the yardstick, and the bound;
+   main path and the stablelm-1.6b shape (B=2, S=4096), bf16: kernel,
+   plain version, ``scaled_dot_product_attention`` as the yardstick, and
+   the bound;
 21. the attention training main path: gemma3-1b at full width, bf16 params
-   with an fp32 master, batch 1 x 4096, a ``TrainCampaign`` of 8 steps in 2
+   with an fp32 master, batch 2 x 4096, a ``TrainCampaign`` of 8 steps in 2
    chunks of 4 on a GPU worker: exactly 26 flash-attention launches per
    step and no SSD launch, finite losses, a checkpoint at step 8; step
-   time, tokens/s, checkpoint save and restore, peak device memory, device
-   busy share;
+   time, tokens/s, checkpoint save and restore, device memory (held
+   before the campaign, resident at each step's start, peak), device busy
+   share;
 22. one train step of gemma3-1b at full width cut to 2 layers (one local,
    one global) in float32 on the card and on the CPU: loss, grad norm and
    updated params agree.
@@ -102,8 +104,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
+# the gemma3-1b campaign (phase 21) peaks within a few GB of the card's
+# memory: growable segments keep what the allocator reserves close to what
+# it hands out (read when CUDA first allocates, so set before torch loads)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 ATOL, RTOL, SYM = 6e-4, 1e-3, 1e-4
@@ -1082,7 +1089,7 @@ def _instrument_training(trainer, ckpt_mod) -> dict:
     """Time each train step (host clock, synchronised) and each checkpoint
     save/restore inside the tasks, into the returned record (installed
     once; each campaign phase clears the record first)."""
-    record = {"steps": [], "saves": [], "restores": []}
+    record = {"steps": [], "resident": [], "saves": [], "restores": []}
     make = trainer.make_train_step
     mgr_cls = ckpt_mod.CheckpointManager
 
@@ -1091,6 +1098,7 @@ def _instrument_training(trainer, ckpt_mod) -> dict:
 
         def timed(state, batch):
             torch.cuda.synchronize()
+            record["resident"].append(torch.cuda.memory_allocated())
             t0 = time.perf_counter()
             out = step(state, batch)
             torch.cuda.synchronize()
@@ -1126,25 +1134,14 @@ def _gpu_cluster(KsaCluster):
                       agent_kw=dict(heartbeat_interval_s=0.2))
 
 
-def _profile_training(train_step_mod, trainer, ckpt_mod, data, cfg, run,
-                      path: str | None) -> tuple[dict | None, float | None]:
-    """The campaign's last checkpoint restored on this thread (timed; with
-    no path, a fresh state drawn on the card instead), one warm-up step,
-    then PROFILE_TRAIN_STEPS steps traced with torch.profiler. Done outside
-    the campaign: stopping the profiler parses ~9000 host ops a step while
+def _profile_training(train_step_mod, trainer, data, cfg, run) -> dict | None:
+    """A fresh state drawn on the card, one warm-up step, then
+    PROFILE_TRAIN_STEPS steps traced with torch.profiler. Done outside the
+    campaign: stopping the profiler parses ~9000 host ops a step while
     holding the GIL, which would starve the agents' loops."""
     ocfg = trainer._ocfg_from_params({})
-    t0 = time.perf_counter()
-    if path is None:
-        state = train_step_mod.init_train_state(
-            cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        restore_s = None
-    else:
-        state, _ = ckpt_mod.restore_checkpoint(
-            path, train_step_mod.train_state_shapes(cfg, ocfg),
-            device="cuda")
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+    state = train_step_mod.init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     step = train_step_mod.make_train_step(cfg, ocfg)
     first = run["total_steps"]
     batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
@@ -1163,8 +1160,7 @@ def _profile_training(train_step_mod, trainer, ckpt_mod, data, cfg, run,
         wall = time.perf_counter() - t0
     del state, batches
     torch.cuda.empty_cache()
-    return _device_share({"prof": prof, "wall": wall},
-                         PROFILE_TRAIN_STEPS), restore_s
+    return _device_share({"prof": prof, "wall": wall}, PROFILE_TRAIN_STEPS)
 
 
 def _gpu_worker(c, ResourceProfile, run):
@@ -1207,10 +1203,37 @@ def _log_chunk_errors(c, run) -> None:
                 f"{str(err['error'])[-3000:]}")
 
 
+def _run_campaign(camp, c, run) -> dict:
+    """camp.run() on a thread; fails as soon as a chunk has used up its
+    attempts (the monitor would otherwise wait out the whole timeout),
+    logging the errors its attempts reported."""
+    box: dict = {}
+
+    def drive():
+        try:
+            box["out"] = camp.run(wait_timeout=1200.0)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            box["error"] = exc
+    th = threading.Thread(target=drive, daemon=True)
+    th.start()
+    while th.is_alive():
+        th.join(timeout=0.5)
+        for start in range(0, run["total_steps"], run["chunk_steps"]):
+            e = c.monitor.task(f"train-{run['arch']}-s{start:06d}")
+            if (e is not None and not e.done
+                    and len(e.errors) >= c.monitor.max_attempts):
+                _log_chunk_errors(c, run)
+                raise AssertionError(f"chunk at step {start} failed "
+                                     f"{len(e.errors)} attempts")
+    if "error" in box:
+        _log_chunk_errors(c, run)
+        raise box["error"]
+    return box["out"]
+
+
 def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
                    configs, KsaCluster, ResourceProfile, record: dict,
-                   workdir: Path, profile_from_checkpoint: bool = True
-                   ) -> dict:
+                   workdir: Path) -> dict:
     """A TrainCampaign at full width on a GPU worker. ``counted`` maps each
     kernel wrapper's name to (wrapper, launches expected per step): every
     count is set to 0 just before the campaign and read just after."""
@@ -1223,18 +1246,16 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
         _gpu_worker(c, ResourceProfile, run)
         camp = _campaign(trainer, c, workdir, run)
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         for fn, _ in counted.values():
             fn.launches = 0                # count only the main path's run
         t0 = time.perf_counter()
-        try:
-            out = camp.run(wait_timeout=1200.0)
-        except TimeoutError:
-            _log_chunk_errors(c, run)
-            raise
+        out = _run_campaign(camp, c, run)
         makespan = time.perf_counter() - t0
         launches = {name: fn.launches for name, (fn, _) in counted.items()}
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
     steps = run["total_steps"]
     chunks = -(-steps // run["chunk_steps"])
     losses = [r["loss"] for r in camp.chunk_results]
@@ -1257,19 +1278,17 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
         f"{name} {launches[name]} = {per} x {steps} steps"
         for name, (_, per) in counted.items()) + "  ok")
     total = torch.cuda.get_device_properties(0).total_memory
-    log(f"  peak device memory (max_memory_allocated) {peak / 1e9:.2f} GB of "
-        f"the card's {total / 1e9:.2f} GB")
+    log(f"  device memory: {held / 1e9:.2f} GB allocated before the campaign; "
+        f"allocated at each step's start "
+        f"{[round(x / 1e9, 2) for x in record['resident']]} GB; peak "
+        f"(max_memory_allocated) {peak / 1e9:.2f} GB, reserved "
+        f"{peak_reserved / 1e9:.2f} GB, of the card's {total / 1e9:.2f} GB")
     for step, sec, size in record["saves"]:
         log(f"  checkpoint save at step {step}: {sec:.2f} s, {size / 1e9:.3f} "
             f"GB on disk ({size / sec / 1e6:.0f} MB/s)")
     log(f"  checkpoint restores: {[round(x, 2) for x in record['restores']]} "
         f"s; checkpoint at step {latest[0]}: {latest[1].split('/')[-1]}")
-    share, restore_s = _profile_training(
-        train_step_mod, trainer, ckpt_mod, data, cfg, run,
-        latest[1] if profile_from_checkpoint else None)
-    if restore_s is not None:
-        log(f"  step-{latest[0]} checkpoint restored onto the card in "
-            f"{restore_s:.2f} s (main thread)")
+    share = _profile_training(train_step_mod, trainer, data, cfg, run)
     if share is None or share["busy"] is None:
         log("  torch.profiler: no device time recorded (busy share not "
             "measured)")
@@ -1286,7 +1305,8 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
             log(f"    {ms:8.4f}  {name[:90]}")
     return {"launches": launches, "losses": losses, "makespan_s": makespan,
             "step_ms": step_ms, "device": share, "saves": list(record["saves"]),
-            "restores": list(record["restores"]), "peak_bytes": peak}
+            "restores": list(record["restores"]), "peak_bytes": peak,
+            "held_bytes": held, "resident_bytes": list(record["resident"])}
 
 
 def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
@@ -1451,10 +1471,8 @@ FA_GRAD_ATOL = 1e-5
 # gemma3-1b at full width: 14 GB of state (bf16 params, fp32 master, m, v);
 # a chunk's host memory holds a copy of it plus the shard buffers of its
 # checkpoint while they are compressed. The batch is cut from the
-# train_4k shape's 256 sequences to what one card holds: one (with two,
-# the fp32 logits of 8192 x 262144 tokens and their gradients, 8.6 GB
-# each, take the card out of memory).
-ATTN_TRAIN = dict(arch=ATTN_ARCH, batch=1, seq=4096, total_steps=8,
+# train_4k shape's 256 sequences to two, which one card holds.
+ATTN_TRAIN = dict(arch=ATTN_ARCH, batch=2, seq=4096, total_steps=8,
                   chunk_steps=4, mem_mb=65536)
 FA_TIMED = ("gemma3_1b_global", "gemma3_1b_local", "stablelm_1_6b")
 
@@ -1469,21 +1487,23 @@ def _fa_kw(case) -> dict:
                 q_offset=case["q_offset"])
 
 
-def fa_model_inputs(shape: dict, seed: int = 0) -> list:
-    """q, k, v of one whole-sequence attention call at a model's width in
-    bf16, made on the card."""
+def fa_model_inputs(shape: dict, seed: int = 0,
+                    dtype: torch.dtype = torch.bfloat16) -> list:
+    """q, k, v of one whole-sequence attention call at a model's width,
+    made on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, s, d = shape["b"], shape["s"], shape["d"]
     return [torch.randn((b, s, h, d), generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
+                        dtype=dtype)
             for h in (shape["h"], shape["kh"], shape["kh"])]
 
 
 def phase_fa_check(fa, fc) -> dict:
     """The kernel against its plain version on the card: every case in f32
-    and bf16, rows with no valid key, the model shapes in bf16 against the
-    plain version in float32, determinism, and FlashAttentionFn's gradients
-    against autograd through the plain version."""
+    and bf16, rows with no valid key, the model shapes in f32 and in bf16
+    against the plain version in float32, determinism, and
+    FlashAttentionFn's gradients against autograd through the plain
+    version."""
     err = 0.0
     for name, case in fc.kernel_cases().items():
         line = []
@@ -1519,8 +1539,20 @@ def phase_fa_check(fa, fc) -> dict:
 
     main_err = {}
     for name, shape in fc.MODEL_SHAPES.items():
-        q, k, v = fa_model_inputs(shape)
         kw = dict(causal=shape["causal"], window=shape["window"])
+        q, k, v = fa_model_inputs(shape, dtype=torch.float32)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, atol=FA_ATOL_F32,
+                                   rtol=FA_ATOL_F32)
+        err = max(err, float((got - want).abs().max()))
+        log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
+            f"K={shape['kh']} D={shape['d']} causal={shape['causal']} "
+            f"window={shape['window']}, f32: max |kernel - plain| "
+            f"{float((got - want).abs().max()):.3g} (tol {FA_ATOL_F32:g}; "
+            f"|out| median {float(want.abs().median()):.3g})  ok")
+        del q, k, v, got, want
+        q, k, v = fa_model_inputs(shape)
         got = fa.flash_attention(q, k, v, **kw)
         if name == "gemma3_1b_global":
             again = fa.flash_attention(q, k, v, **kw)
@@ -1814,8 +1846,7 @@ def main() -> int:
                                                  ATTN_ARCH).n_layers),
                          "ssd_scan": (ssd.ssd_scan, 0)},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
-            ResourceProfile, record, workdir / "attn",
-            profile_from_checkpoint=False)
+            ResourceProfile, record, workdir / "attn")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()

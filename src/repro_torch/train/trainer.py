@@ -93,6 +93,9 @@ class TrainChunkComputing(ClusterComputing):
                 raise RuntimeError(f"chunk starts at {start} but no "
                                    f"checkpoint exists")
             ck_step, state, _ = restored
+            # the tuple would keep the restored state resident beside every
+            # later step's (a second full train state on the device)
+            del restored
             if ck_step != start:
                 # redelivered stale chunk: resume from what actually exists
                 start = ck_step

@@ -37,12 +37,12 @@ SWEEP_POINTS = [
 # Whole-sequence attention at the widths of the models whose training or
 # encoder forward runs the kernel: gemma3-1b's global and local (window
 # 512) layers at the train_4k sequence and the training main path's batch
-# of one sequence, stablelm-1.6b (MHA, D 64), hubert-xlarge
+# of two sequences, stablelm-1.6b (MHA, D 64), hubert-xlarge
 # (bidirectional, D 80) and internvl2-1b (G 7).
 MODEL_SHAPES = {
-    "gemma3_1b_global": dict(b=1, s=4096, h=4, kh=1, d=256, causal=True,
+    "gemma3_1b_global": dict(b=2, s=4096, h=4, kh=1, d=256, causal=True,
                              window=None),
-    "gemma3_1b_local": dict(b=1, s=4096, h=4, kh=1, d=256, causal=True,
+    "gemma3_1b_local": dict(b=2, s=4096, h=4, kh=1, d=256, causal=True,
                             window=512),
     "stablelm_1_6b": dict(b=2, s=4096, h=32, kh=32, d=64, causal=True,
                           window=None),

@@ -20,6 +20,7 @@
 import json
 import threading
 import time
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -338,6 +339,41 @@ def test_training_campaign_completes(cluster, tmp_path):
     assert "smoke" not in entry.task.params
     assert (entry.task.resources.gpus, entry.task.resources.mem_mb) == \
         (0, 1024)
+
+
+def test_restored_state_released_after_first_step(cluster, tmp_path,
+                                                  monkeypatch):
+    """A chunk that starts from a checkpoint keeps no reference to the
+    restored state once its first step has replaced it: on the card that
+    state would stay resident beside every later step's (14 GB more for
+    gemma3-1b at full width)."""
+    from repro_torch.train import trainer as tr
+    restored: list = []
+    real_restore = CheckpointManager.restore_latest
+
+    def restore(self, like, **kw):
+        out = real_restore(self, like, **kw)
+        restored.extend(weakref.ref(t) for t in leaves(out[1]))
+        return out
+    alive: list = []
+    real_make = tr.make_train_step
+
+    def make(cfg, ocfg, **kw):
+        step = real_make(cfg, ocfg, **kw)
+
+        def counted(state, batch):
+            alive.append(sum(r() is not None for r in restored))
+            return step(state, batch)
+        return counted
+    monkeypatch.setattr(CheckpointManager, "restore_latest", restore)
+    monkeypatch.setattr(tr, "make_train_step", make)
+    monkeypatch.setattr(tr.TrainChunkComputing, "_step_cache", {})
+    cluster.add_worker(slots=1)
+    out = _campaign(cluster, tmp_path / "ckpts", total=4,
+                    chunk=2).run(wait_timeout=240.0)
+    assert out["final_step"] == 4 and out["chunks"] == 2
+    # steps 0-1 cold, step 2 from the restored state, step 3 after it
+    assert alive[2] == len(restored) > 0 and alive[3] == 0, alive
 
 
 def test_gemma3_campaign_completes(cluster, tmp_path):
