@@ -35,8 +35,8 @@ bound. Phases:
    ``scaled_dot_product_attention`` call as the yardstick, and the bound;
 10. the serving main path: gemma3-1b at full width in bf16 (random weights
    from ``init_params``), a paged flash ``ServeEngine`` behind
-   ``serve_pipeline``: 16 requests answered with 16 tokens each, every page
-   returned, and exactly 22 dense and 4 paged kernel launches per step;
+   ``serve_pipeline``: 16 requests in two generate tasks answered with 16
+   tokens each, every page returned, and exactly 22 dense and 4 paged kernel launches per step;
 11. exactness at full width in float32: dense chunked (the reference),
    dense flash and paged flash engines give the same greedy tokens;
 12. build of the SSD-scan kernel (started beside the others in phase 2);
@@ -60,28 +60,34 @@ bound. Phases:
    on the CPU: loss, grad norm and updated params agree;
 18. build of the flash-attention kernel (started beside the others in
    phase 2);
-19. flash-attention kernel against its plain version on the card: the cases
-   of tests/test_kernels.py (f32 atol/rtol 2e-5, bf16 2e-2), the
-   bidirectional case, points of the property sweep, q_offset > 0, rows
-   with no valid key (exact zeros), the model shapes (gemma3-1b global and
-   local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in float32 against
-   the plain version in float32 (2e-5) and in bf16 against it (2e-2),
-   twice bit-identical, and the autograd function's gradients against
-   autograd through the plain version (1e-5);
+19. the flash-attention kernels against their plain versions on the card:
+   the cases of tests/test_kernels.py (forward f32 atol/rtol 2e-5, bf16
+   2e-2; the log-sum-exp 1e-5; the backward's dq, dk, dv f32 1e-5, bf16
+   against the plain version in float32 2e-2), the bidirectional case,
+   points of the property sweep, q_offset > 0, rows with no valid key
+   (exact zeros, lse -inf, zero dq), the model shapes (gemma3-1b global
+   and local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in float32
+   against the plain versions in float32 (the backward against float64
+   autograd, 4e-5) and in bf16 against them (the backward also by its
+   relative norm error, 5e-3 a tensor), twice bit-identical forward and backward, and
+   the autograd function's gradients against autograd through the plain
+   version (1e-5), one backward launch each;
 20. flash-attention timing at the gemma3-1b global and local shapes of the
-   main path and the stablelm-1.6b shape (B=2, S=4096), bf16: kernel,
-   plain version, ``scaled_dot_product_attention`` as the yardstick, and
-   the bound;
+   main path and the stablelm-1.6b shape (B=2, S=4096), bf16: the forward
+   kernel, its earlier fp32 FMA design, the plain version,
+   ``scaled_dot_product_attention`` as the yardstick and the bound; the
+   backward kernel, its plain version, SDPA's backward and its bound;
 21. the attention training main path: gemma3-1b at full width, bf16 params
    with an fp32 master, batch 2 x 4096, a ``TrainCampaign`` of 8 steps in 2
-   chunks of 4 on a GPU worker: exactly 26 flash-attention launches per
-   step and no SSD launch, finite losses, a checkpoint at step 8; step
+   chunks of 4 on a GPU worker: exactly 26 forward and 26 backward
+   flash-attention launches per step, no call of a plain version on a CUDA
+   tensor and no SSD launch, finite losses, a checkpoint at step 8; step
    time, tokens/s, checkpoint save and restore, device memory (held
    before the campaign, resident at each step's start, peak), device busy
-   share;
+   share and kernels a step;
 22. one train step of gemma3-1b at full width cut to 2 layers (one local,
-   one global) in float32 on the card and on the CPU: loss, grad norm and
-   updated params agree.
+   one global) in float32 on the card and on the CPU, through both
+   kernels: loss, grad norm and updated params agree.
 
 The last three lines of its output are the kernels line (JSON), the card's
 name and power limit as nvidia-smi gives them, and the result line (JSON).
@@ -92,9 +98,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -132,7 +140,14 @@ HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 OPS_PER_PAIR = 12 + 36 + 44 + 20 + 8 + 4 + 3 + 6 + 9 + 5 + 2 + 3
 
 
+T_START = time.perf_counter()
+
+
 def log(*args) -> None:
+    """print, flushed; a phase's heading (``== n. ...``) gains the seconds
+    since the script started."""
+    if args and str(args[0]).startswith("== "):
+        args = (*args, f"[{time.perf_counter() - T_START:.1f} s]")
     print(*args, flush=True)
 
 
@@ -191,14 +206,18 @@ def phase_environment(build) -> str:
 
 
 def report_build(name: str, res) -> None:
+    """The build's time and, per kernel (its mangled name), ptxas'
+    registers and spills."""
     how = f"built in {res.seconds:.2f} s" if res.seconds else "up to date"
     log(f"build {name}.cu: {how} -> {res.path.relative_to(ROOT)}")
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            log("  ptxas:", line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            log("    ", line.replace("ptxas info    :", "").strip())
 
 
-def phase_build(build, writhe, pool):
+def phase_build(build, writhe, pool) -> dict:
     """Every source compiles at once, one nvcc each; the writhe build is
     reported here, the flash-decode one in phase 7, the SSD one in phase
     12, the flash-attention one in phase 18."""
@@ -207,7 +226,7 @@ def phase_build(build, writhe, pool):
                             "flash_attention")}
     report_build("writhe", pending["writhe"].result())
     writhe._library()
-    return pending["flash_decode"], pending["ssd"], pending["flash_attention"]
+    return pending
 
 
 def frobenius_rel(got: torch.Tensor, exact: torch.Tensor) -> float:
@@ -440,6 +459,8 @@ def phase_main_path(knots, writhe, KsaCluster) -> int:
 
 FD_ATOL_F32, FD_ATOL_BF16 = 2e-5, 2e-2     # tests/test_serve.py, test_kernels
 SERVE_ARCH = "gemma3_1b"
+# 16 requests make two generate tasks of the pipeline's batch of 8: the
+# second reuses the slots and pages the first returned
 N_TEXTS, MAX_NEW, N_EXACT, MAX_NEW_EXACT = 16, 16, 4, 8
 LARGE = dict(b=64, s=8192, kh=32, g=1, d=64, page_size=64)
 L2_BYTES = 64 << 20                        # more than the 50 MB L2
@@ -1233,10 +1254,12 @@ def _run_campaign(camp, c, run) -> dict:
 
 def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
                    configs, KsaCluster, ResourceProfile, record: dict,
-                   workdir: Path) -> dict:
+                   workdir: Path, plain_watch=None) -> dict:
     """A TrainCampaign at full width on a GPU worker. ``counted`` maps each
-    kernel wrapper's name to (wrapper, launches expected per step): every
-    count is set to 0 just before the campaign and read just after."""
+    kernel's name to (its wrapper, the wrapper's count attribute, launches
+    expected per step): every count is set to 0 just before the campaign
+    and read just after. ``plain_watch``, if given, counts calls of the
+    plain versions on CUDA tensors during the campaign (it must see none)."""
     cfg = configs.get_config(run["arch"])
     tokens_per_step = run["batch"] * run["seq"]
     log(f"  {_describe(cfg, run)}")
@@ -1248,12 +1271,14 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        for fn, _ in counted.values():
-            fn.launches = 0                # count only the main path's run
-        t0 = time.perf_counter()
-        out = _run_campaign(camp, c, run)
-        makespan = time.perf_counter() - t0
-        launches = {name: fn.launches for name, (fn, _) in counted.items()}
+        for fn, attr, _ in counted.values():
+            setattr(fn, attr, 0)           # count only the main path's run
+        with plain_watch or contextlib.nullcontext({}) as plain_calls:
+            t0 = time.perf_counter()
+            out = _run_campaign(camp, c, run)
+            makespan = time.perf_counter() - t0
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr, _) in counted.items()}
         peak = torch.cuda.max_memory_allocated()
         peak_reserved = torch.cuda.max_memory_reserved()
     steps = run["total_steps"]
@@ -1261,9 +1286,10 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
     losses = [r["loss"] for r in camp.chunk_results]
     assert out["final_step"] == steps and out["chunks"] == chunks, out
     assert all(np.isfinite(losses)), losses
-    for name, (_, per_step) in counted.items():
+    for name, (_, _, per_step) in counted.items():
         assert launches[name] == per_step * steps, \
             f"{launches[name]} {name} launches, expected {per_step} x {steps}"
+    assert not plain_calls, f"plain versions ran on the card: {plain_calls}"
     latest = ckpt_mod.CheckpointManager(workdir).latest()
     assert latest is not None and latest[0] == steps, latest
     step_ms = statistics.median(record["steps"]) * 1e3
@@ -1276,7 +1302,9 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
         f"{[round(r['steps_per_s'], 3) for r in camp.chunk_results]}")
     log("  launches: " + ", ".join(
         f"{name} {launches[name]} = {per} x {steps} steps"
-        for name, (_, per) in counted.items()) + "  ok")
+        for name, (_, _, per) in counted.items())
+        + ("; no plain-version call on a CUDA tensor" if plain_watch else "")
+        + "  ok")
     total = torch.cuda.get_device_properties(0).total_memory
     log(f"  device memory: {held / 1e9:.2f} GB allocated before the campaign; "
         f"allocated at each step's start "
@@ -1468,13 +1496,58 @@ def phase_train_exactness(train_step_mod, configs, optim, tree) -> dict:
 ATTN_ARCH = "gemma3_1b"
 FA_ATOL_F32, FA_ATOL_BF16 = 2e-5, 2e-2      # tests/test_kernels.py
 FA_GRAD_ATOL = 1e-5
+# the log-sum-exp against the plain version's on the same inputs: fp32
+# sums in another order, exp2/log2 against exp/log
+FA_LSE_ATOL = 1e-5
+# the float32 backward (FMAs on the mma fragment layout, no TF32) at the
+# model shapes, against float64 autograd: a key's dk and dv there sum
+# S x G terms (up to 16384) in fp32 in order, and the plain version's own
+# fp32 sums are up to 3.3e-5 from float64 on the same inputs, so neither
+# holds 1e-5 + 1e-5 |other| against the other on every element
+FA_GRAD_ATOL_MODEL = 4e-5
+# the bf16 backward at the model shapes, per tensor: ||kernel - plain fp32||
+# over ||plain fp32||, beside the per-element limit FA_ATOL_BF16 (whose
+# absolute floor is of the order of a typical |grad| on long rows); 2.35e-3
+# measured on every shape, about what rounding the outputs to bf16 costs
+FA_BWD_REL_BF16 = 5e-3
 # gemma3-1b at full width: 14 GB of state (bf16 params, fp32 master, m, v);
 # a chunk's host memory holds a copy of it plus the shard buffers of its
 # checkpoint while they are compressed. The batch is cut from the
-# train_4k shape's 256 sequences to two, which one card holds.
+# train_4k shape's 256 sequences to two, which one card holds. Two chunks:
+# the second restores the first's 12.7 GB checkpoint and trains at the
+# card's peak, which the 1.6 GB mamba2 state of phases 15-16 never reaches.
 ATTN_TRAIN = dict(arch=ATTN_ARCH, batch=2, seq=4096, total_steps=8,
                   chunk_steps=4, mem_mb=65536)
 FA_TIMED = ("gemma3_1b_global", "gemma3_1b_local", "stablelm_1_6b")
+
+
+FA_PLAIN = ("flash_attention_plain", "flash_attention_lse_plain",
+            "flash_attention_bwd_plain")
+
+
+@contextlib.contextmanager
+def plain_calls_on_card(fa, attention_mod):
+    """Counts, by name, the calls of the flash-attention plain versions and
+    of the model's chunked_attention (the plain forward) made with a CUDA
+    tensor while the block runs."""
+    seen: dict = {}
+    targets = [(fa, n) for n in FA_PLAIN] + [(attention_mod,
+                                              "chunked_attention")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            if args and args[0].is_cuda:
+                seen[name] = seen.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def phase_fa_build(fa, pending) -> None:
@@ -1498,83 +1571,195 @@ def fa_model_inputs(shape: dict, seed: int = 0,
             for h in (shape["h"], shape["kh"], shape["kh"])]
 
 
-def phase_fa_check(fa, fc) -> dict:
-    """The kernel against its plain version on the card: every case in f32
-    and bf16, rows with no valid key, the model shapes in f32 and in bf16
-    against the plain version in float32, determinism, and
-    FlashAttentionFn's gradients against autograd through the plain
-    version."""
+def _fa_grads(fa, q, k, v, g, kw):
+    """The kernels' forward (out, lse) and backward (dq, dk, dv) on q, k, v
+    and the output gradient g, and the plain backward in float32 on the
+    same inputs and the kernel's own out and lse."""
+    out, lse = fa.flash_attention_forward(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*(t.float() for t in (q, k, v, out)),
+                                        lse, g.float(), **kw)
+    return out, lse, got, want
+
+
+def _close(got, want, tol) -> float:
+    """max |got - want| over the tensors, after assert_close at tol."""
     err = 0.0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b, atol=tol, rtol=tol)
+        err = max(err, float((a.float() - b).abs().max()))
+    return err
+
+
+def _attention_grads_f64(q, k, v, g, causal, window) -> list:
+    """dq, dk, dv in float64 by autograd through dense masked softmax
+    attention (GQA by repeating each KV head over its group)."""
+    b, s, h, d = q.shape
+    grp = h // k.shape[2]
+    q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q64,
+                          k64.repeat_interleave(grp, dim=2)) / d ** 0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = torch.ones((s, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kp <= qp
+    if window is not None:
+        valid &= kp > qp - window
+    p = torch.softmax(scores.masked_fill(~valid, -torch.inf), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p,
+                       v64.repeat_interleave(grp, dim=2))
+    grads = torch.autograd.grad((out * g.double()).sum(), (q64, k64, v64))
+    return [t.float() for t in grads]
+
+
+def _rel_norm(got, want, limit) -> float:
+    """max over the tensors of ||got - want|| / ||want||, asserted within
+    limit."""
+    rel = max(float((a.float() - b).norm() / b.norm())
+              for a, b in zip(got, want))
+    assert rel <= limit, f"relative error {rel:.3g} over {limit:g}"
+    return rel
+
+
+def _grad_sizes(grads) -> str:
+    """The largest and the median |grad| over dq, dk and dv."""
+    return (f"|grad| max {max(float(t.abs().max()) for t in grads):.3g}, "
+            f"median dq {float(grads[0].abs().median()):.3g} dk "
+            f"{float(grads[1].abs().median()):.3g} dv "
+            f"{float(grads[2].abs().median()):.3g}")
+
+
+def phase_fa_check(fa, fc) -> dict:
+    """The forward kernel against its plain versions on the card (output
+    and log-sum-exp) and the backward kernel against its plain version, on
+    every case in f32 and bf16, rows with no valid key, the model shapes in
+    f32 and in bf16 against the plain versions in float32, determinism of
+    both, and FlashAttentionFn's gradients against autograd through the
+    plain version."""
+    err, bwd_err = 0.0, 0.0
+    gen = torch.Generator(device="cuda").manual_seed(4)
     for name, case in fc.kernel_cases().items():
         line = []
-        for dtype, tol in ((torch.float32, case["tol"]),
-                           (torch.bfloat16, FA_ATOL_BF16)):
+        for dtype, tol, gtol in ((torch.float32, case["tol"], FA_GRAD_ATOL),
+                                 (torch.bfloat16, FA_ATOL_BF16,
+                                  FA_ATOL_BF16)):
             q, k, v = (torch.from_numpy(case[n]).cuda().to(dtype)
                        for n in ("q", "k", "v"))
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             got = fa.flash_attention(q, k, v, **_fa_kw(case))
-            torch.cuda.synchronize()
-            want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                            **_fa_kw(case))
+            out, lse, grads, want_g = _fa_grads(fa, q, k, v, g, _fa_kw(case))
+            assert torch.equal(got, out)
+            plain = [t.float() for t in (q, k, v)]
+            want = fa.flash_attention_plain(*plain, **_fa_kw(case))
+            want_lse = fa.flash_attention_lse_plain(*plain[:2],
+                                                    **_fa_kw(case))
             assert got.dtype == dtype and got.shape == q.shape
             torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+            torch.testing.assert_close(lse, want_lse, atol=FA_LSE_ATOL,
+                                       rtol=FA_LSE_ATOL)
             e = float((got.float() - want).abs().max())
+            ge = _close(grads, want_g, gtol)
             if dtype == torch.float32:
-                err = max(err, e)
-            line.append(f"{str(dtype)[6:]} {e:.3g} (tol {tol:g})")
+                err, bwd_err = max(err, e), max(bwd_err, ge)
+            line.append(f"{str(dtype)[6:]} {e:.3g}, lse "
+                        f"{float((lse - want_lse).abs().max()):.3g}, "
+                        f"dq/dk/dv {ge:.3g} (tol {tol:g}, {gtol:g})")
         log(f"  {name:<32} q {tuple(case['q'].shape)} k "
             f"{tuple(case['k'].shape)} offset {case['q_offset']}: max "
-            f"|kernel - plain| {', '.join(line)}  ok")
+            f"|kernel - plain| {'; '.join(line)}  ok")
     case, empty = fc.empty_rows_case()
     q, k, v = (torch.from_numpy(case[n]).cuda() for n in ("q", "k", "v"))
-    got = fa.flash_attention(q, k, v, **_fa_kw(case))
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse, grads, want_g = _fa_grads(fa, q, k, v, g, _fa_kw(case))
     want = fa.flash_attention_plain(q, k, v, **_fa_kw(case))
     keep = [i for i in range(q.shape[1]) if i not in empty]
-    assert bool((got[:, empty] == 0).all()), "rows without keys not zero"
-    torch.testing.assert_close(got[:, keep], want[:, keep], atol=FA_ATOL_F32,
+    assert bool((out[:, empty] == 0).all()), "rows without keys not zero"
+    assert bool((lse.transpose(1, 2)[:, empty] == -np.inf).all())
+    assert bool((grads[0][:, empty] == 0).all()), "their dq is not zero"
+    torch.testing.assert_close(out[:, keep], want[:, keep], atol=FA_ATOL_F32,
                                rtol=FA_ATOL_F32)
+    _close(grads, want_g, FA_GRAD_ATOL)
     log(f"  rows without a valid key (positions {empty[0]}-{empty[-1]} of "
-        f"{q.shape[1]}, Sk {k.shape[1]}, window {case['window']}): exactly "
-        f"0; the other rows max |kernel - plain| "
-        f"{float((got[:, keep] - want[:, keep]).abs().max()):.3g}  ok")
+        f"{q.shape[1]}, Sk {k.shape[1]}, window {case['window']}): out, dq "
+        f"exactly 0 and lse -inf; the other rows max |kernel - plain| "
+        f"{float((out[:, keep] - want[:, keep]).abs().max()):.3g}  ok")
 
-    main_err = {}
+    main_err, main_bwd_err = {}, {}
     for name, shape in fc.MODEL_SHAPES.items():
         kw = dict(causal=shape["causal"], window=shape["window"])
         q, k, v = fa_model_inputs(shape, dtype=torch.float32)
-        got = fa.flash_attention(q, k, v, **kw)
+        got, lse = fa.flash_attention_forward(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.testing.assert_close(got, want, atol=FA_ATOL_F32,
                                    rtol=FA_ATOL_F32)
+        want_lse = fa.flash_attention_lse_plain(q, k, **kw)
+        torch.testing.assert_close(lse, want_lse, atol=FA_LSE_ATOL,
+                                   rtol=FA_LSE_ATOL)
         err = max(err, float((got - want).abs().max()))
         log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
             f"K={shape['kh']} D={shape['d']} causal={shape['causal']} "
             f"window={shape['window']}, f32: max |kernel - plain| "
             f"{float((got - want).abs().max()):.3g} (tol {FA_ATOL_F32:g}; "
-            f"|out| median {float(want.abs().median()):.3g})  ok")
-        del q, k, v, got, want
+            f"|out| median {float(want.abs().median()):.3g}), lse "
+            f"{float((lse - want_lse).abs().max()):.3g} (tol "
+            f"{FA_LSE_ATOL:g})  ok")
+        del q, k, v, got, want, lse, want_lse
+        # the float32 backward at the model's shape, against float64
+        q, k, v = fa_model_inputs(shape, dtype=torch.float32)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        _, _, grads, want_g = _fa_grads(fa, q, k, v, g, kw)
+        exact = _attention_grads_f64(q, k, v, g, **kw)
+        ge = _close(grads, exact, FA_GRAD_ATOL_MODEL)
+        pe = max(float((a - b).abs().max()) for a, b in zip(want_g, exact))
+        bwd_err = max(bwd_err, ge)
+        log(f"  {name:<17} backward, f32: max |dq, dk, dv - float64| "
+            f"{ge:.3g} (tol {FA_GRAD_ATOL_MODEL:g}; the plain version's in "
+            f"fp32 {pe:.3g}; {_grad_sizes(exact)})  ok")
+        del q, k, v, g, grads, want_g, exact
+        torch.cuda.empty_cache()
         q, k, v = fa_model_inputs(shape)
-        got = fa.flash_attention(q, k, v, **kw)
+        got, lse = fa.flash_attention_forward(q, k, v, **kw)
+        g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        grads = fa.flash_attention_bwd(q, k, v, got, lse, g, **kw)
         if name == "gemma3_1b_global":
-            again = fa.flash_attention(q, k, v, **kw)
+            again, lse2 = fa.flash_attention_forward(q, k, v, **kw)
+            grads2 = fa.flash_attention_bwd(q, k, v, got, lse, g, **kw)
             torch.cuda.synchronize()
-            assert torch.equal(got, again), "kernel not deterministic"
-        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+            assert torch.equal(got, again) and torch.equal(lse, lse2), \
+                "forward kernel not deterministic"
+            assert all(torch.equal(a, b) for a, b in zip(grads, grads2)), \
+                "backward kernel not deterministic"
+            del again, lse2, grads2
+        plain = [t.float() for t in (q, k, v)]
+        want = fa.flash_attention_plain(*plain, **kw)
         torch.testing.assert_close(got.float(), want, atol=FA_ATOL_BF16,
                                    rtol=FA_ATOL_BF16)
         main_err[name] = float((got.float() - want).abs().max())
         share = float(((got.float() - want).abs()
                        / (FA_ATOL_BF16 + FA_ATOL_BF16 * want.abs())).max())
+        del want
+        want_g = fa.flash_attention_bwd_plain(*plain, got.float(), lse,
+                                              g.float(), **kw)
+        main_bwd_err[name] = _close(grads, want_g, FA_ATOL_BF16)
+        rel = _rel_norm(grads, want_g, FA_BWD_REL_BF16)
+        gshare = max(float(((a.float() - b).abs()
+                            / (FA_ATOL_BF16 + FA_ATOL_BF16 * b.abs())).max())
+                     for a, b in zip(grads, want_g))
         log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
             f"K={shape['kh']} D={shape['d']} causal={shape['causal']} "
             f"window={shape['window']}, bf16: max |kernel - plain fp32| "
-            f"{main_err[name]:.3g} (|out| max {float(want.abs().max()):.3g}; "
-            f"{share:.2f} of the 2e-2 + 2e-2 |out| limit used)"
-            + ("; two runs bit-identical" if name == "gemma3_1b_global"
-               else "") + "  ok")
-        del q, k, v, got, want
+            f"{main_err[name]:.3g} ({share:.2f} of the 2e-2 + 2e-2 |out| "
+            f"limit used); backward max |dq, dk, dv - plain fp32| "
+            f"{main_bwd_err[name]:.3g} ({_grad_sizes(want_g)}; {gshare:.2f} "
+            f"of the limit used), ||dq, dk, dv - plain fp32|| / ||plain|| "
+            f"at most {rel:.3g} (limit {FA_BWD_REL_BF16:g})"
+            + ("; two runs bit-identical, forward and backward"
+               if name == "gemma3_1b_global" else "") + "  ok")
+        del q, k, v, got, lse, g, grads, want_g, plain
         torch.cuda.empty_cache()
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     for name, case in (("window 40", fc.random_case(31, 2, 96, 96, 6, 2, 32,
                                                      window=40)),
                        ("causal, D 80", fc.random_case(32, 1, 70, 70, 4, 4,
@@ -1587,30 +1772,33 @@ def phase_fa_check(fa, fc) -> dict:
                        for n in ("q", "k", "v"))
             out = fn(q, k, v, kv_chunk=32, **_fa_kw(case))
             return torch.autograd.grad((out * w).sum(), (q, k, v))
-        got, want = grads(fa.flash_attention), grads(fa.flash_attention_plain)
-        gerr = 0.0
-        for g, wg in zip(got, want):
-            torch.testing.assert_close(g, wg, atol=FA_GRAD_ATOL,
-                                       rtol=FA_GRAD_ATOL)
-            gerr = max(gerr, float((g - wg).abs().max()))
+        before = fa.flash_attention.bwd_launches
+        got = grads(fa.flash_attention)
+        assert fa.flash_attention.bwd_launches == before + 1
+        gerr = _close(got, grads(fa.flash_attention_plain), FA_GRAD_ATOL)
         log(f"  FlashAttentionFn gradients, {name:<12}: q, k, v max "
             f"|autograd(kernel) - autograd(plain)| {gerr:.3g} (limit "
-            f"{FA_GRAD_ATOL:g})  ok")
+            f"{FA_GRAD_ATOL:g}), one backward launch  ok")
     return {"max_abs_err": max(err, *main_err.values()), "f32_err": err,
-            "main_err": main_err}
+            "main_err": main_err, "bwd_f32_err": bwd_err,
+            "bwd_main_err": main_bwd_err}
 
 
 def attention_bound(b, sq, sk, h, kh, d, causal, window, elem,
-                    q_offset=0) -> tuple[float, str, dict]:
-    """Least time for one attention call: the two products over the live
-    (query head, key) pairs, 4 D operations each, at the bf16 tensor-core
-    rate, against Q, K, V read once and O written once at 3.35 TB/s."""
+                    q_offset=0, backward=False) -> tuple[float, str, dict]:
+    """Least time for one attention call at the bf16 tensor-core rate and
+    3.35 TB/s. Forward: the two products over the live (query head, key)
+    pairs, 4 D operations each, against Q, K, V read once and O written
+    once. Backward: the five products (S, dP = dO.V^T, dV, dK, dQ), 10 D
+    operations a live pair, against Q, K, V, O and dO read once and dQ, dK,
+    dV written once."""
     pos = q_offset + np.arange(sq)
     hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
     lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, int)
     pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * h
-    ops = 4 * d * pairs
-    nbytes = elem * d * (2 * b * sq * h + 2 * b * sk * kh)
+    per_pair, q_like = (10, 4) if backward else (4, 2)
+    ops = per_pair * d * pairs
+    nbytes = elem * d * q_like * (b * sq * h + b * sk * kh)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / BF16_FLOP_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -1619,10 +1807,13 @@ def attention_bound(b, sq, sk, h, kh, d, causal, window, elem,
                                      "ops_ms": t_ops}
 
 
-def _sdpa_call(q, k, v, shape):
+def _sdpa_call(q, k, v, shape, grad=False):
     """scaled_dot_product_attention on (B, H, S, D) copies: is_causal for a
-    causal shape, a boolean band for a window, GQA by enable_gqa."""
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    causal shape, a boolean band for a window, GQA by enable_gqa. With
+    ``grad`` the copies are leaves that require gradients; they are
+    returned with the call."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grad)
+                  for t in (q, k, v))
     s = q.shape[1]
     mask, causal = None, shape["causal"]
     if shape["window"] is not None:
@@ -1635,57 +1826,142 @@ def _sdpa_call(q, k, v, shape):
     def call():
         return sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal,
                     enable_gqa=shape["h"] != shape["kh"])
+    return (call, (qt, kt, vt)) if grad else call
+
+
+def _grad_call(out, ins, g):
+    """One backward through the graph that made ``out`` (kept for the next
+    call), seeded with ``g``: the time of the backward alone."""
+    def call():
+        return torch.autograd.grad(out, ins, g, retain_graph=True)
     return call
 
 
-def _sdpa_backend(call) -> str:
+def _sdpa_backend(call, backward=False) -> str:
     """The backend one SDPA call dispatched to: the name of the ATen op
-    it ran (``aten::_scaled_dot_product_<backend>_attention``)."""
+    it ran (``aten::_scaled_dot_product_<backend>_attention``, or its
+    ``_backward`` when ``call`` runs the backward)."""
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU])
     with prof:
         call()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
-             if e.name.startswith("aten::_scaled_dot_product_")
-             or e.name.startswith("aten::_efficient_attention")
-             or e.name.startswith("aten::_flash_attention")]
+             if (e.name.startswith("aten::_scaled_dot_product_")
+                 or e.name.startswith("aten::_efficient_attention")
+                 or e.name.startswith("aten::_flash_attention"))
+             and e.name.endswith("_backward") == backward]
     return names[0] if names else "not recorded"
 
 
+def _kernel_ms(call, runs: int = 20) -> dict:
+    """Device ms of one run of ``call`` by kernel (torch.profiler): each
+    kernel's mean over the launches recorded in ``runs`` runs (each runs
+    once a call), the names cut to the kernel's own; empty when the
+    profiler records no device activity."""
+    call()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+    total: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"flash_\w+_kernel", e.name)
+            name = found.group(0) if found else e.name[:60]
+            t, n = total.get(name, (0.0, 0))
+            total[name] = (t + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    return {name: t / n for name, (t, n) in total.items()}
+
+
 def phase_fa_timing(fa, fc) -> dict:
+    """At each timed shape in bf16: the forward kernel, its earlier fp32 FMA
+    design (the float32 path, run on bf16 inputs), its plain version
+    and SDPA's forward; the backward kernel, its plain version and SDPA's
+    backward (``autograd.grad`` through its graph, kept between runs); and
+    both bounds."""
     out = {}
     for name in FA_TIMED:
         shape = fc.MODEL_SHAPES[name]
         q, k, v = fa_model_inputs(shape, seed=1)
         kw = dict(causal=shape["causal"], window=shape["window"])
         ms = _median_flushed(lambda: fa.flash_attention(q, k, v, **kw), 20)
+        fma_ms = _median_flushed(
+            lambda: fa._launch(q, k, v, q_offset=0, fma=True, **kw), 10)
         plain_ms = _median_flushed(
             lambda: fa.flash_attention_plain(q, k, v, **kw), 5, warmup=1)
         library = _sdpa_call(q, k, v, shape)
-        torch.testing.assert_close(
-            library().transpose(1, 2).float(),
-            fa.flash_attention(q, k, v, **kw).float(), atol=FA_ATOL_BF16,
-            rtol=FA_ATOL_BF16)
+        o, lse = fa.flash_attention_forward(q, k, v, **kw)
+        torch.testing.assert_close(library().transpose(1, 2).float(),
+                                   o.float(), atol=FA_ATOL_BF16,
+                                   rtol=FA_ATOL_BF16)
         library_ms = _median_flushed(library, 20)
         backend = _sdpa_backend(library)
+        del library
         bound_ms, bound_by, parts = attention_bound(
             shape["b"], shape["s"], shape["s"], shape["h"], shape["kh"],
             shape["d"], shape["causal"], shape["window"], q.element_size())
         log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
             f"K={shape['kh']} D={shape['d']} window={shape['window']} bf16: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
+            f"forward kernel {ms:.4f} ms (earlier FMA design {fma_ms:.4f} "
+            f"ms, {fma_ms / ms:.1f}x), plain {plain_ms:.3f} ms, sdpa "
             f"{library_ms:.4f} ms ({backend}); bound {bound_ms:.4f} ms "
             f"({bound_by}: {parts['ops'] / 1e9:.2f} GFLOP over "
             f"{parts['pairs']} live pairs -> {parts['ops_ms']:.4f} ms at "
             f"the bf16 rate, {parts['bytes'] / 1e6:.1f} MB -> "
             f"{parts['bytes_ms']:.4f} ms); {bound_ms / ms:.2%} of the bound, "
             f"{parts['ops'] / ms / 1e9:.1f} TFLOP/s")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_backend": backend, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "gflop": parts["ops"] / 1e9,
-                     "shape": shape}
-        del q, k, v, library
+
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        g = torch.randn(q.shape, generator=gen, device="cuda", dtype=q.dtype)
+        bwd_ms = _median_flushed(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, **kw), 20)
+        bwd_plain_ms = _median_flushed(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, **kw),
+            5, warmup=1)
+        parts_ms = _kernel_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, **kw))
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+        torch.cuda.empty_cache()
+        lib_call, lib_ins = _sdpa_call(q, k, v, shape, grad=True)
+        lib_o = lib_call()
+        lib_grad = _grad_call(lib_o, lib_ins, g.transpose(1, 2).contiguous())
+        library_bwd_ms = _median_flushed(lib_grad, 20)
+        bwd_backend = _sdpa_backend(lib_grad, backward=True)
+        lib_diff = max(float((a.float() - b.transpose(1, 2).float())
+                             .abs().max()) for a, b in zip(got, lib_grad()))
+        del lib_o, lib_ins, lib_call, lib_grad, got
+        bwd_bound_ms, bwd_by, bparts = attention_bound(
+            shape["b"], shape["s"], shape["s"], shape["h"], shape["kh"],
+            shape["d"], shape["causal"], shape["window"], q.element_size(),
+            backward=True)
+        log(f"  {name:<17} backward: kernel {bwd_ms:.4f} ms, plain "
+            f"{bwd_plain_ms:.3f} ms, sdpa backward {library_bwd_ms:.4f} ms "
+            f"({bwd_backend}; max |dq, dk, dv - sdpa's| {lib_diff:.3g}); "
+            f"bound {bwd_bound_ms:.4f} ms ({bwd_by}: "
+            f"{bparts['ops'] / 1e9:.2f} GFLOP -> {bparts['ops_ms']:.4f} ms, "
+            f"{bparts['bytes'] / 1e6:.1f} MB -> {bparts['bytes_ms']:.4f} "
+            f"ms); {bwd_bound_ms / bwd_ms:.2%} of the bound, "
+            f"{bparts['ops'] / bwd_ms / 1e9:.1f} TFLOP/s of the five "
+            f"products; one call by kernel (torch.profiler, mean of the "
+            f"launches recorded in 20 calls, L2 warm): " + (", ".join(f"{n} {t:.4f} ms"
+                                    for n, t in parts_ms.items())
+                          or "no device activity recorded"))
+        out[name] = {"ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library_backend": backend,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "gflop": parts["ops"] / 1e9, "shape": shape, "bwd": {
+                         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                         "library_ms": library_bwd_ms,
+                         "library_backend": bwd_backend,
+                         "bound_ms": bwd_bound_ms, "bound_by": bwd_by,
+                         "gflop": bparts["ops"] / 1e9, "by_kernel": parts_ms}}
+        del q, k, v, o, lse, g
         torch.cuda.empty_cache()
     return out
 
@@ -1709,13 +1985,13 @@ def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
              "labels": torch.from_numpy(tok[:, 1:].astype(np.int32))}
     step = train_step_mod.make_train_step(cfg, ocfg)
     on_card = tree.tree_map(lambda t: t.cuda(), state)
-    before = fa.flash_attention.launches
+    before = fa.flash_attention.launches, fa.flash_attention.bwd_launches
     t0 = time.perf_counter()
     got, gm = step(on_card, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
-    assert fa.flash_attention.launches == before + 2, \
-        "the card's step skipped the kernel"
+    assert (fa.flash_attention.launches, fa.flash_attention.bwd_launches) \
+        == (before[0] + 2, before[1] + 2), "the card's step skipped a kernel"
     t0 = time.perf_counter()
     want, wm = step(state, batch)
     t_cpu = time.perf_counter() - t0
@@ -1762,6 +2038,7 @@ def main() -> int:
     from repro_torch.cluster import KsaCluster
     from repro_torch.core import ResourceProfile
     from repro_torch.kernels import build, writhe
+    from repro_torch.models import attention as attention_mod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd
@@ -1772,7 +2049,7 @@ def main() -> int:
     smi = phase_environment(build)
     with ThreadPoolExecutor(max_workers=4) as pool:
         log("== 2. build")
-        flash_build, ssd_build, fa_build = phase_build(build, writhe, pool)
+        pending = phase_build(build, writhe, pool)
         log("== 3. kernel against its plain version on the card")
         check_err = phase_check(knots, writhe)
         phase_parity(knots, writhe)
@@ -1787,7 +2064,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t_serve = time.perf_counter()
         log("== 7. build of the flash-decode kernels")
-        phase_flash_build(fd, flash_build)
+        phase_flash_build(fd, pending["flash_decode"])
     log("== 8. flash-decode kernels against their plain versions on the card")
     fd_err = phase_flash_check(fd, fdc)
     log("== 9. flash-decode timing (median, CUDA events, L2 flushed)")
@@ -1803,7 +2080,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
     log("== 12. build of the SSD-scan kernel")
-    phase_ssd_build(ssd, ssd_build)
+    phase_ssd_build(ssd, pending["ssd"])
     log("== 13. SSD-scan kernel against its plain version on the card")
     ssd_err = phase_ssd_check(ssd, sc)
     log("== 14. SSD-scan timing at the training shape (median, CUDA events, "
@@ -1816,9 +2093,10 @@ def main() -> int:
         log(f"== 15. training main path: TrainCampaign on KsaCluster, "
             f"{TRAIN_ARCH} at full width, {TRAIN['total_steps']} steps")
         trained = phase_training(
-            TRAIN, {"ssd_scan": (ssd.ssd_scan, configs.get_config(
-                TRAIN_ARCH).layer_kinds().count("ssd")),
-                    "flash_attention": (fa.flash_attention, 0)},
+            TRAIN, {"ssd_scan": (ssd.ssd_scan, "launches",
+                                 configs.get_config(TRAIN_ARCH)
+                                 .layer_kinds().count("ssd")),
+                    "flash_attention": (fa.flash_attention, "launches", 0)},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
             ResourceProfile, record, workdir / "run1")
         log("== 16. recovery at full width: an agent crashed mid-chunk")
@@ -1831,7 +2109,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_attn = time.perf_counter()
     log("== 18. build of the flash-attention kernel")
-    phase_fa_build(fa, fa_build)
+    phase_fa_build(fa, pending["flash_attention"])
     log("== 19. flash-attention kernel against its plain version on the card")
     fa_err = phase_fa_check(fa, fc)
     log("== 20. flash-attention timing (median, CUDA events, L2 flushed)")
@@ -1840,13 +2118,16 @@ def main() -> int:
         log(f"== 21. attention training main path: TrainCampaign on "
             f"KsaCluster, {ATTN_ARCH} at full width, "
             f"{ATTN_TRAIN['total_steps']} steps")
+        layers = configs.get_config(ATTN_ARCH).n_layers
         attn_trained = phase_training(
-            ATTN_TRAIN, {"flash_attention": (fa.flash_attention,
-                                             configs.get_config(
-                                                 ATTN_ARCH).n_layers),
-                         "ssd_scan": (ssd.ssd_scan, 0)},
+            ATTN_TRAIN, {"flash_attention": (fa.flash_attention, "launches",
+                                             layers),
+                         "flash_attention_bwd": (fa.flash_attention,
+                                                 "bwd_launches", layers),
+                         "ssd_scan": (ssd.ssd_scan, "launches", 0)},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
-            ResourceProfile, record, workdir / "attn")
+            ResourceProfile, record, workdir / "attn",
+            plain_watch=plain_calls_on_card(fa, attention_mod))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1936,14 +2217,43 @@ def main() -> int:
         # scaled_dot_product_attention, is_causal and enable_gqa
         "library_ms": main_fa["library_ms"],
         "library_backend": main_fa["library_backend"],
+        "fma_design_ms": main_fa["fma_ms"],
         "shape": dict(main_fa["shape"], dtype="bfloat16",
                       case="gemma3_1b_global"),
-        "local": fa_time["gemma3_1b_local"],
-        "stablelm": fa_time["stablelm_1_6b"],
+        "local": {k: v for k, v in fa_time["gemma3_1b_local"].items()
+                  if k != "bwd"},
+        "stablelm": {k: v for k, v in fa_time["stablelm_1_6b"].items()
+                     if k != "bwd"},
         "max_abs_err_f32": fa_err["f32_err"],
         "launches_per_step": (attn_trained["launches"]["flash_attention"]
                               // ATTN_TRAIN["total_steps"]),
         "train_step_ms": attn_trained["step_ms"],
+        "check": "pass",
+    })
+    main_bwd = main_fa["bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:119 (its "
+                    "gradient: the JAX package differentiates "
+                    "chunked_attention and has no Pallas backward)",
+        "launches": attn_trained["launches"]["flash_attention_bwd"],
+        "max_abs_err": fa_err["bwd_main_err"]["gemma3_1b_global"],
+        "ms": main_bwd["ms"],
+        "plain_ms": main_bwd["plain_ms"],
+        "bound_ms": main_bwd["bound_ms"],
+        "bound_by": main_bwd["bound_by"],
+        # scaled_dot_product_attention's backward, through autograd
+        "library_ms": main_bwd["library_ms"],
+        "library_backend": main_bwd["library_backend"],
+        "shape": dict(main_fa["shape"], dtype="bfloat16",
+                      case="gemma3_1b_global"),
+        "local": fa_time["gemma3_1b_local"]["bwd"],
+        "stablelm": fa_time["stablelm_1_6b"]["bwd"],
+        "max_abs_err_f32": fa_err["bwd_f32_err"],
+        "launches_per_step": (attn_trained["launches"]["flash_attention_bwd"]
+                              // ATTN_TRAIN["total_steps"]),
         "check": "pass",
     })
     print(json.dumps({"kernels": kernels}))

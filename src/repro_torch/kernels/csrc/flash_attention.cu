@@ -1,56 +1,97 @@
-// Flash attention (forward) for NVIDIA Hopper (sm_90a), hand-written CUDA
-// C++: whole-sequence GQA attention, causal, sliding-window or
-// bidirectional, with online softmax.
+// Flash attention for NVIDIA Hopper (sm_90a), hand-written CUDA C++:
+// whole-sequence GQA attention, causal, sliding-window or bidirectional,
+// forward and backward.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
-// flash_attention (pallas_call at :119, body _flash_kernel :27-81). Its plain
-// PyTorch version is repro_torch/kernels/flash_attention.py::
-// flash_attention_plain, which is the model's own chunked_attention.
+// flash_attention (pallas_call at :119, body _flash_kernel :27-81). The JAX
+// package has no backward kernel: its training differentiates the model's
+// chunked_attention. The plain PyTorch versions are in
+// repro_torch/kernels/flash_attention.py: flash_attention_plain (the
+// model's chunked_attention, the forward's output), flash_attention_lse_plain
+// (the log-sum-exp the forward also writes) and flash_attention_bwd_plain
+// (the backward's formula).
 //
 // What it computes, per batch row b, query position i (absolute position
 // qp = q_offset + i) and query head h (KV head kh = h / G):
 //   out[b, i, h] = sum_j p_j v[b, j, kh] / sum_j p_j,
 //   p_j = exp(scale * q[b, i, h] . k[b, j, kh] - max), scale = 1/sqrt(D),
+//   lse[b, h, i] = max + log(sum_j p_j),
 //   over the keys j < Sk with j <= qp when causal and j > qp - window when
-//   a window is given.
-// Scores, the running max, the running sum and the (rows, D) accumulator are
-// float32 (q and k are widened to float32 before the products, as the
-// Pallas kernel does); p is rounded to the value type before the p.V
-// product, as the model's chunked_attention does (p.to(v.dtype)), while the
-// running sum adds the unrounded p. A query with no valid key writes exact
-// zeros (p is masked explicitly, l = 0 gives acc / 1e-37 = 0); the Pallas
-// kernel and chunked_attention give an average over masked keys there.
+//   a window is given. Scores, the running max and sum and the (rows, D)
+//   accumulator are float32; p is rounded to the value type before the p.V
+//   product, as the model's chunked_attention does (p.to(v.dtype)), while
+//   the running sum adds the unrounded p. A query with no valid key writes
+//   exact zeros and lse = -inf (chunked_attention and the Pallas kernel
+//   give an average over masked keys there).
+// The backward, given dO: with P = exp(scale S - lse) and
+// Delta = rowsum(dO o out),
+//   dV = P^T dO,  dS = P o (dO V^T - Delta),  dQ = scale dS K,
+//   dK = scale dS^T Q,
+// each summed over the query heads of a KV head's group for dK and dV.
 //
 // What bounds it on this card: the operations. At the training main path's
 // shape (gemma3-1b global layer: B = 2, S = 4096, H = 4, K = 1, D = 256,
-// causal) the two products over the live (query, key) pairs are 68.7 GFLOP
-// against 42 MB of Q, K, V and O: ~69 us at the bf16 tensor-core rate,
-// ~13 us of bandwidth. A local layer (window 512) is about 17 us of
-// operations. This kernel does those operations as float32 FMAs on shared
-// memory tiles (67 TFLOP/s peak outside the tensor cores), so it cannot come
-// within 15x of that bound; tensor cores (mma.sync / wgmma on bf16 tiles)
-// and TMA staging are left for later work.
+// causal) the forward's two products over the live (query, key) pairs are
+// 68.7 GFLOP against 42 MB of Q, K, V and O: ~69 us at the bf16
+// tensor-core rate, ~13 us of bandwidth. The backward's five products are
+// 10 D operations a live pair, ~174 us. A local layer (window 512) is a
+// quarter of that.
 //
-// What the design does:
-//  * One block per (q tile, KV head, batch row). A block holds ROWS = 64
-//    query rows: block_m = 64 / G positions times the whole GQA group of G
-//    query heads of its KV head, so each K/V tile is read once for all G
-//    heads (the TPU kernel reads it once per query head).
-//  * A loop inside the block walks key tiles of BN keys (the TPU grid's
-//    sequential kv axis). Tiles that no (query, key) pair of the block needs
-//    are never visited (the Pallas `live` predicate, :44-53): with causal
-//    masking the loop stops at the tile of the block's last query, and with
-//    a window it starts at the tile of its first query's first key, so a
-//    local layer does O(S * window) work.
-//  * Q, K and V are read in place through their strides (16-byte loads
-//    when the layout allows) and widened to float32 in shared memory, rows
-//    padded by 16 bytes so the products read shared memory without bank
-//    conflicts. The ragged ends of Sq and Sk are masked in the kernel, never
-//    padded with copies.
-//  * Both products run as register micro-tiles: each of 256 threads owns 4
-//    query rows x BN/16 keys of the scores and 4 rows x D/64 float4 column
-//    groups of the accumulator; one warp per 8 rows does the softmax.
-//  * Fixed summation order and no atomics: two runs are bit-identical.
+// Design, bfloat16 (the training path):
+//  * Tensor cores: every product is mma.sync m16n8k16 (bf16 in, fp32
+//    accumulate) on fragments read with ldmatrix straight from bf16 tiles in
+//    shared memory (rows padded by 16 bytes, so the 8 rows of an ldmatrix
+//    fall in distinct banks). Nothing is widened to fp32 in shared memory.
+//  * Forward: one block of 4 warps per (64 query rows, KV head, batch row).
+//    The 64 rows are 64 / G positions times the whole GQA group of G query
+//    heads, so each K/V tile is read once for all G heads. A warp owns 16
+//    rows: its scores, the online softmax (max and sum) and its (16, D)
+//    accumulator stay in fp32 registers, and p goes from the score
+//    accumulators to the P.V product's A operand in registers (rounded to
+//    bf16). K/V tiles (64 keys, 32 at D = 256: 2 x 32 x 528 B a stage) are
+//    staged with cp.async in a 2-stage ring, so tile j + 1 loads while tile
+//    j is multiplied; Q and the two stages take 101 KB at D = 256 and two
+//    blocks fit on an SM.
+//  * Key tiles that no (query, key) pair of the block needs are never
+//    visited (the Pallas `live` predicate, :44-53): with causal masking the
+//    loop stops at the tile of the block's last query, and with a window it
+//    starts at the tile of its first query's first key, so a local layer
+//    does O(S * window) work. Only tiles that straddle a mask edge are
+//    masked element by element.
+//  * Causal q tiles launch longest first (the last tile sees the most keys)
+//    so the heaviest blocks do not form the last wave.
+//  * Backward, two passes and no atomics, after a small pass that forms
+//    Delta. Pass 1 (dK, dV): one block of 8 warps per (key tile, KV head,
+//    batch row) loops over every query tile of all G heads of its group
+//    that sees those keys (Q and dO tiles in a cp.async ring), recomputing
+//    S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q. Its
+//    hard part is D = 256: an fp32 (16, 256) accumulator for dK and one for
+//    dV would take 256 registers a thread. So DSPLIT = D / 64 warps share
+//    16 keys (D = 128: 2, D = 256: 4; none up to D = 80): each accumulates a
+//    64-wide slice of dK and dV, computes its slice's partial S^T and dP^T,
+//    and the partials are summed through shared memory in a fixed order, so
+//    every warp of the group holds the same P and dS. Key tiles are 32 keys
+//    at D = 256, 64 at D = 128, 128 below. A full causal triangle gives key
+//    tile 0 every query and the last tile few, and gemma3-1b's global layer
+//    at B = 2, S = 4096 has only 256 such blocks, one uneven wave: there
+//    (and wherever the blocks are too few to fill the card) each key tile's
+//    query range is split over several blocks, whose fp32 partials a last
+//    pass sums in split order. Pass 2 (dQ): the forward's layout (64 folded
+//    rows a block, live key tiles only) recomputes S and dP and accumulates
+//    dQ += dS K in registers. Each output is summed in a fixed order: two
+//    runs are bit-identical.
+//  * The cost of mma.sync at D = 256: a warp's 16-row tiles reload their
+//    operand fragments from shared memory for every product, and the
+//    backward's lock-step iterations wait on barriers; wgmma with TMA and
+//    warp specialisation are left for later work.
+//
+// Float32: the forward is the FMA kernel of the first port (flash_kernel
+// below: Q, K, V in fp32 shared memory, fp32 FMA micro-tiles, key tiles of
+// 32 at D = 256 and 64 below), which also serves bf16 when the launch asks
+// for it, to time that design beside this one. The backward runs the same
+// tiling as bf16, with each m16n8k16 product done as fp32 FMAs on the same
+// fragment layout (operands gathered by warp shuffles): no TF32, so it
+// agrees with the plain version to float32 round-off.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,21 +100,134 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 64;               // query rows (position, head) a block
-constexpr int TX = 16, TY = 16;        // thread grid of the two products
-constexpr int RPT = ROWS / TY;         // rows per thread
-constexpr int ROWS_PER_WARP = ROWS / WARPS;
-static_assert(TX * TY == THREADS, "16 x 16 threads");
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// PTX primitives: cp.async, ldmatrix and mma.sync (bf16 in, fp32 out)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, global -> shared, asynchronous
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 4 bytes, global -> shared, asynchronous
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b, m16n8k16, A row-major, B column-major
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// common helpers
+// ---------------------------------------------------------------------------
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// two adjacent outputs (an even column) in T
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// over the 4 lanes of a quad (the lanes that share an mma row)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;     // (B, Sq, H, D), last axis contiguous
   const void* k;     // (B, Sk, K, D), last axis contiguous
   const void* v;     // (B, Sk, K, D), last axis contiguous
   void* out;         // (B, Sq, H, D), contiguous
+  float* lse;        // (B, H, Sq), contiguous
   int B, Sq, Sk, H, K, G;
-  int block_m;       // query positions a block: ROWS / G
+  int block_m;       // query positions a block: 64 / G
   long long q_s0, q_s1, q_s2;   // element strides of the first three axes
   long long k_s0, k_s1, k_s2;
   long long v_s0, v_s1, v_s2;
@@ -83,6 +237,200 @@ struct Params {
   int q_offset;      // absolute position of query 0
   int vec;           // rows may be read with 16-byte loads
 };
+
+struct BwdParams {
+  Params f;          // q, k, v, out, lse and the shape, as in the forward
+  const void* dout;  // (B, Sq, H, D), contiguous
+  float* delta;      // (B, H, Sq): rowsum(dO o out)
+  void* dq;          // (B, Sq, H, D), contiguous
+  void* dk;          // (B, Sk, K, D), contiguous
+  void* dv;          // (B, Sk, K, D), contiguous
+  float* ws;         // splits > 1: (2, splits, B, Sk, K, D) partial dK, dV
+  int splits;        // blocks sharing a key tile's query range
+};
+
+__device__ __forceinline__ bool key_ok(const Params& p, int key, int qp) {
+  return key < p.Sk && (!p.causal || key <= qp) &&
+         (p.window <= 0 || key > qp - p.window);
+}
+
+// Copy `rows` rows of D elements into shared memory (row stride RS
+// elements), with 16-byte cp.async when `vec`, else element by element.
+// off(r) is the element offset of row r in src, or -1 for a row outside the
+// tensor, which is zero-filled.
+template <typename T, int D, int RS, int NT, typename RowOff>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int rows,
+                                          RowOff off, int vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    constexpr int PER = D / E;
+    for (int i = threadIdx.x; i < rows * PER; i += NT) {
+      const int r = i / PER;
+      const int c = (i - r * PER) * E;
+      const long long o = off(r);
+      T* d = dst + r * RS + c;
+      if (o < 0)
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        cp_async16(d, src + o + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += NT) {
+      const int r = i / D;
+      const int c = i - r * D;
+      const long long o = off(r);
+      dst[r * RS + c] = o < 0 ? from_f<T>(0.0f) : src[o + c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// m16n8k16 fragments. With g = lane / 4 and c = lane % 4, a lane holds
+// A (16 x 16) at (g, 2c..2c+1), (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..);
+// B (16 x 8, k x n) at (k = 2c..2c+1, n = g), (k = 2c+8.., n = g); and the
+// accumulator C (16 x 8) at (g, 2c..2c+1), (g+8, 2c..2c+1). A FragB holds
+// two adjacent n8 tiles. bf16 fragments come from ldmatrix and feed the
+// tensor cores; float32 fragments hold the same elements and their product
+// is done as fp32 FMAs, the operands gathered by shuffles.
+// ---------------------------------------------------------------------------
+
+template <typename T> struct FragA;
+template <> struct FragA<bf16> { uint32_t x[4]; };
+template <> struct FragA<float> { float x[8]; };
+template <typename T> struct FragB;
+template <> struct FragB<bf16> { uint32_t x[4]; };
+template <> struct FragB<float> { float x[8]; };
+
+// A(m, k) = s[(m0 + m) * rs + k0 + k]
+__device__ __forceinline__ void load_a(FragA<bf16>& f, const bf16* s, int rs,
+                                       int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(f.x, s + (m0 + (lane & 15)) * rs + k0 + ((lane >> 4) << 3));
+}
+__device__ __forceinline__ void load_a(FragA<float>& f, const float* s,
+                                       int rs, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const float* r0 = s + (m0 + (lane >> 2)) * rs + k0 + 2 * (lane & 3);
+  const float* r1 = r0 + 8 * rs;
+  f.x[0] = r0[0]; f.x[1] = r0[1]; f.x[2] = r1[0]; f.x[3] = r1[1];
+  f.x[4] = r0[8]; f.x[5] = r0[9]; f.x[6] = r1[8]; f.x[7] = r1[9];
+}
+
+// B(k, n) = s[(n0 + n) * rs + k0 + k], n over two n8 tiles
+__device__ __forceinline__ void load_b_nk(FragB<bf16>& f, const bf16* s,
+                                          int rs, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(f.x, s + (n0 + ((lane >> 4) << 3) + (lane & 7)) * rs + k0 +
+                   (((lane >> 3) & 1) << 3));
+}
+__device__ __forceinline__ void load_b_nk(FragB<float>& f, const float* s,
+                                          int rs, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float* r = s + (n0 + 8 * j + (lane >> 2)) * rs + k0 + 2 * (lane & 3);
+    f.x[4 * j] = r[0]; f.x[4 * j + 1] = r[1];
+    f.x[4 * j + 2] = r[8]; f.x[4 * j + 3] = r[9];
+  }
+}
+
+// B(k, n) = s[(k0 + k) * rs + n0 + n], n over two n8 tiles
+__device__ __forceinline__ void load_b_kn(FragB<bf16>& f, const bf16* s,
+                                          int rs, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(f.x, s + (k0 + (((lane >> 3) & 1) << 3) + (lane & 7)) * rs +
+                         n0 + ((lane >> 4) << 3));
+}
+__device__ __forceinline__ void load_b_kn(FragB<float>& f, const float* s,
+                                          int rs, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const float* c = s + (k0 + 2 * (lane & 3)) * rs + n0 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    f.x[4 * j] = c[8 * j]; f.x[4 * j + 1] = c[rs + 8 * j];
+    f.x[4 * j + 2] = c[8 * rs + 8 * j]; f.x[4 * j + 3] = c[9 * rs + 8 * j];
+  }
+}
+
+// the A operand from two accumulator tiles (columns 0-7 and 8-15); bf16
+// rounds each value to nearest
+__device__ __forceinline__ void a_from_c(FragA<bf16>& f, const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  f.x[0] = pack_bf16(c0[0], c0[1]);
+  f.x[1] = pack_bf16(c0[2], c0[3]);
+  f.x[2] = pack_bf16(c1[0], c1[1]);
+  f.x[3] = pack_bf16(c1[2], c1[3]);
+}
+__device__ __forceinline__ void a_from_c(FragA<float>& f,
+                                         const float (&c0)[4],
+                                         const float (&c1)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f.x[e] = c0[e];
+    f.x[4 + e] = c1[e];
+  }
+}
+
+// c0 += A . B(tile 0), c1 += A . B(tile 1)
+__device__ __forceinline__ void mma2(float (&c0)[4], float (&c1)[4],
+                                     const FragA<bf16>& a,
+                                     const FragB<bf16>& b) {
+  mma_bf16(c0, a.x, b.x[0], b.x[1]);
+  mma_bf16(c1, a.x, b.x[2], b.x[3]);
+}
+__device__ __forceinline__ void mma2(float (&c0)[4], float (&c1)[4],
+                                     const FragA<float>& a,
+                                     const FragB<float>& b) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  float* cs[2] = {c0, c1};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // A(g, k) and A(g + 8, k) for k = 2q, 2q+1, 2q+8, 2q+9: lane 4g + q
+    const int src_a = 4 * g + q;
+    float lo[4], hi[4];
+    lo[0] = __shfl_sync(0xffffffffu, a.x[0], src_a);
+    lo[1] = __shfl_sync(0xffffffffu, a.x[1], src_a);
+    lo[2] = __shfl_sync(0xffffffffu, a.x[4], src_a);
+    lo[3] = __shfl_sync(0xffffffffu, a.x[5], src_a);
+    hi[0] = __shfl_sync(0xffffffffu, a.x[2], src_a);
+    hi[1] = __shfl_sync(0xffffffffu, a.x[3], src_a);
+    hi[2] = __shfl_sync(0xffffffffu, a.x[6], src_a);
+    hi[3] = __shfl_sync(0xffffffffu, a.x[7], src_a);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // B(k, n = 2c + e) for the same k: lane 4 (2c + e) + q
+        const int src_b = 4 * (2 * c + e) + q;
+        float bk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          bk[i] = __shfl_sync(0xffffffffu, b.x[4 * j + i], src_b);
+        float s0 = cs[j][e], s1 = cs[j][2 + e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s0 = fmaf(lo[i], bk[i], s0);
+          s1 = fmaf(hi[i], bk[i], s1);
+        }
+        cs[j][e] = s0;
+        cs[j][2 + e] = s1;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, fp32 FMA design (float32; bf16 on request)
+// ---------------------------------------------------------------------------
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 64;               // query rows (position, head) a block
+constexpr int TX = 16, TY = 16;        // thread grid of the two products
+constexpr int RPT = ROWS / TY;         // rows per thread
+constexpr int ROWS_PER_WARP = ROWS / WARPS;
+static_assert(TX * TY == THREADS, "16 x 16 threads");
 
 template <int D>
 struct Shape {
@@ -98,35 +446,6 @@ struct Shape {
                        static_cast<size_t>(ROWS) * PS + 2 * ROWS);
   static_assert(D % 16 == 0, "head dims are multiples of 16");
 };
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 // Stage `rows` rows of D elements into float32 shared memory (row stride
 // D + 4). off(r) is the element offset of row r in src, or -1 for a row
@@ -169,8 +488,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Params p) {
   constexpr int BN = S::BN, JN = S::JN, DS = S::DS, PS = S::PS;
   constexpr int NG = S::NG, CG = S::CG;
 
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                  // (ROWS, DS)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // (ROWS, DS)
   float* k_s = q_s + ROWS * DS;       // (BN, DS)
   float* v_s = k_s + BN * DS;         // (BN, DS)
   float* p_s = v_s + BN * DS;         // (ROWS, PS): scores, then p
@@ -278,9 +597,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
         const int kp = k0 + tx + TX * j;
-        const int qp = row_pos[i];
-        const bool ok = row_ok[i] && kp < p.Sk && (!p.causal || kp <= qp) &&
-                        (p.window <= 0 || kp > qp - p.window);
+        const bool ok = row_ok[i] && key_ok(p, kp, row_pos[i]);
         p_s[(ty + TY * i) * PS + tx + TX * j] = ok ? sc[i][j] * p.scale
                                                    : -INFINITY;
       }
@@ -349,8 +666,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Params p) {
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i)
-      l_s[warp * ROWS_PER_WARP + i] = l_run[i];
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp * ROWS_PER_WARP + i;
+      l_s[r] = l_run[i];
+      if (r < n_rows)
+        p.lse[(static_cast<long long>(b) * p.H + kh * G + r % G) * p.Sq +
+              q0 + r / G] =
+            l_run[i] > 0.0f ? m_run[i] + logf(l_run[i]) : -INFINITY;
+    }
   }
   __syncthreads();
 
@@ -373,55 +696,913 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward, tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;  // 16 of the 64 rows a warp
+
 template <typename T, int D>
-int launch(const Params& p, void* stream) {
-  const size_t smem = Shape<D>::SMEM;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+struct TcShape {
+  static constexpr int BN = D > 128 ? 32 : 64;  // keys a tile
+  static constexpr int RS = D + 16 / sizeof(T); // row stride, 16-byte pad
+  static constexpr int KV = BN * RS;            // one K or V tile
+  static constexpr size_t SMEM =
+      sizeof(T) * (static_cast<size_t>(ROWS) * RS + 4 * KV);
+};
+
+// Row r of a block is query position q0 + r / G and head kh * G + r % G;
+// a block covers ROWS / G positions. Causal blocks are ordered longest
+// first.
+struct RowBlock {
+  int q0, kh, b, n_pos, n_rows, q_lo, q_hi;
+};
+
+__device__ __forceinline__ RowBlock row_block(const Params& p) {
+  const int per = p.K * p.B;
+  const int n_qt = (p.Sq + p.block_m - 1) / p.block_m;
+  const int rank = blockIdx.x / per;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  RowBlock rb;
+  rb.kh = (blockIdx.x % per) % p.K;
+  rb.b = (blockIdx.x % per) / p.K;
+  rb.q0 = qt * p.block_m;
+  rb.n_pos = min(p.block_m, p.Sq - rb.q0);
+  rb.n_rows = rb.n_pos * p.G;
+  rb.q_lo = p.q_offset + rb.q0;
+  rb.q_hi = rb.q_lo + rb.n_pos - 1;
+  return rb;
+}
+
+// the key tiles of BN keys that some (query, key) pair of the block needs
+__device__ __forceinline__ void live_tiles(const Params& p, const RowBlock& rb,
+                                           int bn, int& t_begin, int& t_end) {
+  t_begin = 0;
+  t_end = (p.Sk + bn - 1) / bn;
+  if (p.causal) t_end = min(t_end, rb.q_hi / bn + 1);
+  if (p.window > 0) t_begin = max(0, rb.q_lo - p.window + 1) / bn;
+}
+
+// every pair of the tile is valid for every row of the block
+__device__ __forceinline__ bool tile_full(const Params& p, const RowBlock& rb,
+                                          int k0, int bn) {
+  return k0 + bn <= p.Sk && (!p.causal || k0 + bn - 1 <= rb.q_lo) &&
+         (p.window <= 0 || k0 > rb.q_hi - p.window);
+}
+
+__device__ __forceinline__ long long row_offset(const Params& p,
+                                                const RowBlock& rb, int r,
+                                                long long s0, long long s1,
+                                                long long s2) {
+  if (r >= rb.n_rows) return -1;
+  return rb.b * s0 + static_cast<long long>(rb.q0 + r / p.G) * s1 +
+         static_cast<long long>(rb.kh * p.G + r % p.G) * s2;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS, 2) flash_tc_kernel(Params p) {
+  using S = TcShape<T, D>;
+  constexpr int BN = S::BN, RS = S::RS, NT = BN / 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);   // (ROWS, RS)
+  T* kv_s = q_s + ROWS * RS;                 // stage s: K at 2 s KV, V next
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const RowBlock rb = row_block(p);
+  const T* qg = static_cast<const T*>(p.q);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+
+  int t_begin, t_end;
+  live_tiles(p, rb, BN, t_begin, t_end);
+  auto load_kv = [&](int t, int s) {
+    const int k0 = t * BN;
+    T* ks = kv_s + 2 * s * S::KV;
+    load_rows<T, D, RS, TC_THREADS>(ks, kg, BN, [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return rb.b * p.k_s0 + static_cast<long long>(k0 + r) * p.k_s1 +
+             rb.kh * p.k_s2;
+    }, p.vec);
+    load_rows<T, D, RS, TC_THREADS>(ks + S::KV, vg, BN,
+                                    [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return rb.b * p.v_s0 + static_cast<long long>(k0 + r) * p.v_s1 +
+             rb.kh * p.v_s2;
+    }, p.vec);
+  };
+  load_rows<T, D, RS, TC_THREADS>(q_s, qg, ROWS, [&](int r) -> long long {
+    return row_offset(p, rb, r, p.q_s0, p.q_s1, p.q_s2);
+  }, p.vec);
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // this thread's rows: r_lo = 16 warp + g and r_lo + 8
+  const int r_lo = 16 * warp + g;
+  const int pos_lo = rb.q_lo + r_lo / p.G;
+  const int pos_hi = rb.q_lo + (r_lo + 8) / p.G;
+  const float scale2 = p.scale * LOG2E;   // scores in base-2 units
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    const int s = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < t_end) {  // so its stage takes tile t + 1
+      load_kv(t + 1, s ^ 1);
+      cp_async_commit();
+    }
+    const T* ks = kv_s + 2 * s * S::KV;
+    const T* vs = ks + S::KV;
+
+    // S = Q K^T, 16 rows x BN keys a warp
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      FragA<T> a;
+      load_a(a, q_s, RS, 16 * warp, 16 * kk);
+#pragma unroll
+      for (int nn = 0; nn < BN / 16; ++nn) {
+        FragB<T> bk;
+        load_b_nk(bk, ks, RS, 16 * nn, 16 * kk);
+        mma2(sc[2 * nn], sc[2 * nn + 1], a, bk);
+      }
+    }
+
+    // mask, online softmax (base 2), p in place of the scores
+    const int k0 = t * BN;
+    const bool full = tile_full(p, rb, k0, BN);
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v0 = sc[j][e] * scale2, v1 = sc[j][2 + e] * scale2;
+        if (!full) {
+          const int key = k0 + 8 * j + 2 * c + e;
+          if (!key_ok(p, key, pos_lo)) v0 = -INFINITY;
+          if (!key_ok(p, key, pos_hi)) v1 = -INFINITY;
+        }
+        sc[j][e] = v0;
+        sc[j][2 + e] = v1;
+        mx_lo = fmaxf(mx_lo, v0);
+        mx_hi = fmaxf(mx_hi, v1);
+      }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    // a row that has seen no valid key keeps m = -inf, corr 1, p 0
+    const float corr_lo = mn_lo == -INFINITY ? 1.0f : exp2f(m_lo - mn_lo);
+    const float corr_hi = mn_hi == -INFINITY ? 1.0f : exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 =
+            sc[j][e] == -INFINITY ? 0.0f : exp2f(sc[j][e] - mn_lo);
+        const float p1 =
+            sc[j][2 + e] == -INFINITY ? 0.0f : exp2f(sc[j][2 + e] - mn_hi);
+        sum_lo += p0;
+        sum_hi += p1;
+        sc[j][e] = p0;
+        sc[j][2 + e] = p1;
+      }
+    l_lo = l_lo * corr_lo + sum_lo;
+    l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      o[j][0] *= corr_lo;
+      o[j][1] *= corr_lo;
+      o[j][2] *= corr_hi;
+      o[j][3] *= corr_hi;
+    }
+
+    // O += P V, p rounded to bf16 in the A operand
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      FragA<T> a;
+      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        FragB<T> bv;
+        load_b_kn(bv, vs, RS, 16 * kk, 16 * nn);
+        mma2(o[2 * nn], o[2 * nn + 1], a, bv);
+      }
+    }
   }
+  cp_async_wait<0>();
+
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  T* og = static_cast<T*>(p.out);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (r >= rb.n_rows) continue;
+    const float l = half ? l_hi : l_lo;
+    const float m = half ? m_hi : m_lo;
+    const float inv = 1.0f / fmaxf(l, 1e-37f);
+    const int h = rb.kh * p.G + r % p.G;
+    const int i = rb.q0 + r / p.G;
+    T* orow = og + ((static_cast<long long>(rb.b) * p.Sq + i) * p.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      store2(orow + 8 * j + 2 * c, o[j][2 * half] * inv,
+             o[j][2 * half + 1] * inv);
+    if (c == 0)
+      p.lse[(static_cast<long long>(rb.b) * p.H + h) * p.Sq + i] =
+          l > 0.0f ? (m + log2f(l)) * LN2 : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// Delta = rowsum(dO o out): one warp per (b, i, h) row, out and dO
+// contiguous (B, Sq, H, D), Delta (B, H, Sq)
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(BwdParams p) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  const long long n = static_cast<long long>(p.f.B) * p.f.Sq * p.f.H;
+  if (row >= n) return;
+  const int lane = threadIdx.x & 31;
+  const T* o = static_cast<const T*>(p.f.out) + row * D;
+  const T* d = static_cast<const T*>(p.dout) + row * D;
+  float acc = 0.0f;
+  for (int e = lane; e < D; e += 32) acc = fmaf(to_f(o[e]), to_f(d[e]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const long long h = row % p.f.H;
+    const long long i = (row / p.f.H) % p.f.Sq;
+    const long long b = row / (static_cast<long long>(p.f.H) * p.f.Sq);
+    p.delta[(b * p.f.H + h) * p.f.Sq + i] = acc;
+  }
+}
+
+constexpr int BW_WARPS = 8;
+constexpr int BW_THREADS = 32 * BW_WARPS;
+
+// pass 1: DSPLIT warps share 16 keys, each with a DW-wide slice of D
+template <typename T, int D>
+struct KvShape {
+  static constexpr int DSPLIT = D <= 80 ? 1 : D / 64;
+  static constexpr int DW = D / DSPLIT;
+  static constexpr int BN = 16 * BW_WARPS / DSPLIT;   // keys a block
+  static constexpr int RS = D + 16 / sizeof(T);
+  static constexpr size_t smem(int bq) {
+    return sizeof(T) * (2 * static_cast<size_t>(BN) * RS +
+                        4 * static_cast<size_t>(bq) * RS) +
+           sizeof(float) * ((DSPLIT > 1 ? BW_WARPS * 2 * 16 * bq : 0) +
+                            4 * bq);
+  }
+  // query positions an iteration: 32 where two blocks fit on an SM
+  static constexpr int BQ = smem(32) <= 113 * 1024 ? 32 : 16;
+  static constexpr int XW = 2 * 16 * BQ;  // a warp's partial S^T, dP^T
+  static constexpr int XCH = DSPLIT > 1 ? BW_WARPS * XW : 0;
+  static constexpr size_t SMEM = smem(BQ);
+  static_assert(DW % 16 == 0, "a warp's slice is whole k16 steps");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BW_THREADS, sizeof(T) == 2 ? 2 : 1)
+    flash_bwd_dkdv_kernel(BwdParams bp) {
+  using S = KvShape<T, D>;
+  constexpr int BN = S::BN, RS = S::RS, BQ = S::BQ, DW = S::DW;
+  constexpr int DSPLIT = S::DSPLIT, QN = BQ / 8;
+  const Params& p = bp.f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // (BN, RS)
+  T* v_s = k_s + BN * RS;                   // (BN, RS)
+  T* qd_s = v_s + BN * RS;                  // stage s: Q at 2 s BQ RS, dO next
+  float* xch = reinterpret_cast<float*>(qd_s + 4 * BQ * RS);
+  float* ld_s = xch + S::XCH;               // stage s: lse at 2 s BQ, Delta
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int grp = warp / DSPLIT;            // its 16 keys
+  const int d0 = (warp % DSPLIT) * DW;      // its slice of D
+  // block: (key tile, split, KV head, batch row), key tile slowest (causal:
+  // key tile 0 sees the most queries and goes first)
+  const int per = p.K * p.B;
+  const int kt = blockIdx.x / (bp.splits * per);
+  const int split = (blockIdx.x / per) % bp.splits;
+  const int kh = (blockIdx.x % per) % p.K;
+  const int b = (blockIdx.x % per) / p.K;
+  const int k0 = kt * BN;
+  const int k_last = min(k0 + BN, p.Sk) - 1;
+
+  // the query positions i (absolute q_offset + i) that see some key here
+  const int i_lo = p.causal ? max(0, k0 - p.q_offset) : 0;
+  const int i_hi = p.window > 0
+                       ? min(p.Sq - 1, k_last + p.window - 1 - p.q_offset)
+                       : p.Sq - 1;
+  const int nq = i_hi >= i_lo ? (i_hi - i_lo + BQ) / BQ : 0;
+  // iterations (head of the group, q tile); this block's share of them
+  const int per_split = (p.G * nq + bp.splits - 1) / bp.splits;
+  const int it_begin = split * per_split;
+  const int it_end = min(p.G * nq, it_begin + per_split);
+
+  const T* qg = static_cast<const T*>(p.q);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  const T* dog = static_cast<const T*>(bp.dout);
+  const long long do_s1 = static_cast<long long>(p.H) * D;
+  const long long do_s0 = do_s1 * p.Sq;
+
+  auto load_q = [&](int it, int s) {
+    const int h = kh * p.G + it / nq;
+    const int i0 = i_lo + (it % nq) * BQ;
+    T* qs = qd_s + 2 * s * BQ * RS;
+    load_rows<T, D, RS, BW_THREADS>(qs, qg, BQ, [&](int r) -> long long {
+      if (i0 + r > i_hi) return -1;
+      return b * p.q_s0 + static_cast<long long>(i0 + r) * p.q_s1 +
+             static_cast<long long>(h) * p.q_s2;
+    }, p.vec);
+    load_rows<T, D, RS, BW_THREADS>(qs + BQ * RS, dog, BQ,
+                                    [&](int r) -> long long {
+      if (i0 + r > i_hi) return -1;
+      return b * do_s0 + static_cast<long long>(i0 + r) * do_s1 +
+             static_cast<long long>(h) * D;
+    }, p.vec);
+    float* ls = ld_s + 2 * s * BQ;
+    for (int r = threadIdx.x; r < 2 * BQ; r += BW_THREADS) {
+      const int i = i0 + r % BQ;
+      const long long o = (static_cast<long long>(b) * p.H + h) * p.Sq + i;
+      if (i > i_hi)
+        ls[r] = 0.0f;
+      else
+        cp_async4(ls + r, r < BQ ? p.lse + o : bp.delta + o);
+    }
+  };
+
+  if (it_begin < it_end) {
+    load_rows<T, D, RS, BW_THREADS>(k_s, kg, BN, [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return b * p.k_s0 + static_cast<long long>(k0 + r) * p.k_s1 +
+             kh * p.k_s2;
+    }, p.vec);
+    load_rows<T, D, RS, BW_THREADS>(v_s, vg, BN, [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return b * p.v_s0 + static_cast<long long>(k0 + r) * p.v_s1 +
+             kh * p.v_s2;
+    }, p.vec);
+    load_q(it_begin, 0);
+  }
+  cp_async_commit();
+
+  float dk[DW / 8][4], dv[DW / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[j][e] = 0.0f;
+      dv[j][e] = 0.0f;
+    }
+  const int key_lo = k0 + 16 * grp + g;     // this thread's keys: +0, +8
+
+  for (int it = it_begin; it < it_end; ++it) {
+    const int s = (it - it_begin) & 1;
+    cp_async_wait<0>();
+    // the tile is in; every warp is done with the last one and with the
+    // exchange, so the last tile's stage takes the next
+    __syncthreads();
+    if (it + 1 < it_end) {
+      load_q(it + 1, s ^ 1);
+      cp_async_commit();
+    }
+    const T* qs = qd_s + 2 * s * BQ * RS;
+    const T* dos = qs + BQ * RS;
+    const float* ls = ld_s + 2 * s * BQ;
+    const int i0 = i_lo + (it % nq) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over this warp's slice of D: 16 keys x
+    // BQ query rows
+    float st[QN][4], dpt[QN][4];
+#pragma unroll
+    for (int j = 0; j < QN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[j][e] = 0.0f;
+        dpt[j][e] = 0.0f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < DW / 16; ++kk) {
+      FragA<T> ak, av;
+      load_a(ak, k_s, RS, 16 * grp, d0 + 16 * kk);
+      load_a(av, v_s, RS, 16 * grp, d0 + 16 * kk);
+#pragma unroll
+      for (int nn = 0; nn < BQ / 16; ++nn) {
+        FragB<T> bq, bo;
+        load_b_nk(bq, qs, RS, 16 * nn, d0 + 16 * kk);
+        load_b_nk(bo, dos, RS, 16 * nn, d0 + 16 * kk);
+        mma2(st[2 * nn], st[2 * nn + 1], ak, bq);
+        mma2(dpt[2 * nn], dpt[2 * nn + 1], av, bo);
+      }
+    }
+    if (DSPLIT > 1) {
+      // the group's partial sums, each lane's fragments as float4s at its
+      // own slots, then summed by every warp of the group in the same order
+      float4* mine = reinterpret_cast<float4*>(xch + warp * S::XW);
+#pragma unroll
+      for (int j = 0; j < QN; ++j) {
+        mine[j * 32 + lane] = make_float4(st[j][0], st[j][1], st[j][2],
+                                          st[j][3]);
+        mine[(QN + j) * 32 + lane] = make_float4(dpt[j][0], dpt[j][1],
+                                                 dpt[j][2], dpt[j][3]);
+      }
+      __syncthreads();
+      const float4* first =
+          reinterpret_cast<const float4*>(xch + grp * DSPLIT * S::XW);
+#pragma unroll
+      for (int j = 0; j < QN; ++j) {
+        float4 a = first[j * 32 + lane], d = first[(QN + j) * 32 + lane];
+#pragma unroll
+        for (int w = 1; w < DSPLIT; ++w) {
+          const float4 x = first[w * S::XW / 4 + j * 32 + lane];
+          const float4 y = first[w * S::XW / 4 + (QN + j) * 32 + lane];
+          a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+          d.x += y.x; d.y += y.y; d.z += y.z; d.w += y.w;
+        }
+        st[j][0] = a.x; st[j][1] = a.y; st[j][2] = a.z; st[j][3] = a.w;
+        dpt[j][0] = d.x; dpt[j][1] = d.y; dpt[j][2] = d.z; dpt[j][3] = d.w;
+      }
+    }
+
+    // P^T = exp(scale S^T - lse) where valid, dS^T = P^T o (dP^T - Delta)
+#pragma unroll
+    for (int j = 0; j < QN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;
+        const int i = i0 + col;
+        const int qp = p.q_offset + i;
+        const float lse = ls[col], dl = ls[BQ + col];
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const bool ok = i <= i_hi && key_ok(p, key_lo + 8 * hi, qp);
+          const float pt = ok ? expf(st[j][2 * hi + e] * p.scale - lse) : 0.0f;
+          dpt[j][2 * hi + e] = pt * (dpt[j][2 * hi + e] - dl);
+          st[j][2 * hi + e] = pt;
+        }
+      }
+
+    // dV += P^T dO, dK += dS^T Q over this warp's slice of D
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      FragA<T> ap, ads;
+      a_from_c(ap, st[2 * kk], st[2 * kk + 1]);
+      a_from_c(ads, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int nn = 0; nn < DW / 16; ++nn) {
+        FragB<T> bo, bq;
+        load_b_kn(bo, dos, RS, 16 * kk, d0 + 16 * nn);
+        load_b_kn(bq, qs, RS, 16 * kk, d0 + 16 * nn);
+        mma2(dv[2 * nn], dv[2 * nn + 1], ap, bo);
+        mma2(dk[2 * nn], dk[2 * nn + 1], ads, bq);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // one split: dK and dV in T; several: fp32 partials, summed in order by
+  // flash_bwd_reduce_kernel
+  const long long n_out = static_cast<long long>(p.B) * p.Sk * p.K * D;
+  float* wk = bp.splits > 1 ? bp.ws + split * n_out : nullptr;
+  float* wv = bp.splits > 1 ? bp.ws + (bp.splits + split) * n_out : nullptr;
+  T* dkg = static_cast<T*>(bp.dk);
+  T* dvg = static_cast<T*>(bp.dv);
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int key = key_lo + 8 * hi;
+    if (key >= p.Sk) continue;
+    const long long o =
+        ((static_cast<long long>(b) * p.Sk + key) * p.K + kh) * D + d0;
+#pragma unroll
+    for (int j = 0; j < DW / 8; ++j) {
+      const long long e = o + 8 * j + 2 * c;
+      const float k0v = dk[j][2 * hi] * p.scale;
+      const float k1v = dk[j][2 * hi + 1] * p.scale;
+      if (bp.splits == 1) {
+        store2(dkg + e, k0v, k1v);
+        store2(dvg + e, dv[j][2 * hi], dv[j][2 * hi + 1]);
+      } else {
+        store2(wk + e, k0v, k1v);
+        store2(wv + e, dv[j][2 * hi], dv[j][2 * hi + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV: the splits' fp32 partials summed in split order, in T
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(BwdParams bp,
+                                                               long long n) {
+  T* dk = static_cast<T*>(bp.dk);
+  T* dv = static_cast<T*>(bp.dv);
+  const long long step = static_cast<long long>(gridDim.x) * 256 * 2;
+  for (long long e = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x)
+                     * 2; e < n; e += step) {
+    float k0 = 0.0f, k1 = 0.0f, v0 = 0.0f, v1 = 0.0f;
+    for (int s = 0; s < bp.splits; ++s) {
+      const float2 a = *reinterpret_cast<const float2*>(bp.ws + s * n + e);
+      const float2 b = *reinterpret_cast<const float2*>(
+          bp.ws + (bp.splits + s) * n + e);
+      k0 += a.x;
+      k1 += a.y;
+      v0 += b.x;
+      v1 += b.y;
+    }
+    store2(dk + e, k0, k1);
+    store2(dv + e, v0, v1);
+  }
+}
+
+// pass 2: the forward's layout, key tiles of 16 where a row is 512 bytes
+template <typename T, int D>
+struct DqShape {
+  static constexpr int BN = D * sizeof(T) >= 512 ? 16 : 64;
+  static constexpr int RS = D + 16 / sizeof(T);
+  static constexpr int KV = BN * RS;
+  static constexpr size_t SMEM =
+      sizeof(T) * (2 * static_cast<size_t>(ROWS) * RS + 4 * KV);
+};
+
+// bf16 below D = 256 holds at most 168 registers, so three blocks fit an SM
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  sizeof(T) == 2 ? (D < 256 ? 3 : 2) : 1)
+    flash_bwd_dq_kernel(BwdParams bp) {
+  using S = DqShape<T, D>;
+  constexpr int BN = S::BN, RS = S::RS, NT = BN / 8, ND = D / 8;
+  const Params& p = bp.f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);   // (ROWS, RS)
+  T* do_s = q_s + ROWS * RS;                 // (ROWS, RS)
+  T* kv_s = do_s + ROWS * RS;                // stage s: K at 2 s KV, V next
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const RowBlock rb = row_block(p);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  const long long do_s1 = static_cast<long long>(p.H) * D;
+
+  int t_begin, t_end;
+  live_tiles(p, rb, BN, t_begin, t_end);
+  auto load_kv = [&](int t, int s) {
+    const int k0 = t * BN;
+    T* ks = kv_s + 2 * s * S::KV;
+    load_rows<T, D, RS, TC_THREADS>(ks, kg, BN, [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return rb.b * p.k_s0 + static_cast<long long>(k0 + r) * p.k_s1 +
+             rb.kh * p.k_s2;
+    }, p.vec);
+    load_rows<T, D, RS, TC_THREADS>(ks + S::KV, vg, BN,
+                                    [&](int r) -> long long {
+      if (k0 + r >= p.Sk) return -1;
+      return rb.b * p.v_s0 + static_cast<long long>(k0 + r) * p.v_s1 +
+             rb.kh * p.v_s2;
+    }, p.vec);
+  };
+  load_rows<T, D, RS, TC_THREADS>(q_s, static_cast<const T*>(p.q), ROWS,
+                                  [&](int r) -> long long {
+    return row_offset(p, rb, r, p.q_s0, p.q_s1, p.q_s2);
+  }, p.vec);
+  load_rows<T, D, RS, TC_THREADS>(do_s, static_cast<const T*>(bp.dout), ROWS,
+                                  [&](int r) -> long long {
+    return row_offset(p, rb, r, do_s1 * p.Sq, do_s1, D);
+  }, p.vec);
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  cp_async_commit();
+
+  // this thread's rows, their lse and Delta
+  const int r_lo = 16 * warp + g;
+  int pos[2];
+  bool row_ok[2];
+  float lse[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    row_ok[half] = r < rb.n_rows;
+    pos[half] = rb.q_lo + r / p.G;
+    const long long o = (static_cast<long long>(rb.b) * p.H + rb.kh * p.G +
+                         r % p.G) * p.Sq + rb.q0 + r / p.G;
+    lse[half] = row_ok[half] ? p.lse[o] : 0.0f;
+    dl[half] = row_ok[half] ? bp.delta[o] : 0.0f;
+  }
+
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
+
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    const int s = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < t_end) {  // so its stage takes tile t + 1
+      load_kv(t + 1, s ^ 1);
+      cp_async_commit();
+    }
+    const T* ks = kv_s + 2 * s * S::KV;
+    const T* vs = ks + S::KV;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x BN keys a warp
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = 0.0f;
+        dp[j][e] = 0.0f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      FragA<T> aq, ao;
+      load_a(aq, q_s, RS, 16 * warp, 16 * kk);
+      load_a(ao, do_s, RS, 16 * warp, 16 * kk);
+#pragma unroll
+      for (int nn = 0; nn < BN / 16; ++nn) {
+        FragB<T> bk, bv;
+        load_b_nk(bk, ks, RS, 16 * nn, 16 * kk);
+        load_b_nk(bv, vs, RS, 16 * nn, 16 * kk);
+        mma2(sc[2 * nn], sc[2 * nn + 1], aq, bk);
+        mma2(dp[2 * nn], dp[2 * nn + 1], ao, bv);
+      }
+    }
+
+    // dS = P o (dP - Delta), P = exp(scale S - lse) where valid
+    const int k0 = t * BN;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * c + e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const bool ok = row_ok[half] && key_ok(p, key, pos[half]);
+          const float pr =
+              ok ? expf(sc[j][2 * half + e] * p.scale - lse[half]) : 0.0f;
+          sc[j][2 * half + e] = pr * (dp[j][2 * half + e] - dl[half]);
+        }
+      }
+
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      FragA<T> a;
+      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        FragB<T> bk;
+        load_b_kn(bk, ks, RS, 16 * kk, 16 * nn);
+        mma2(dq[2 * nn], dq[2 * nn + 1], a, bk);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  T* dqg = static_cast<T*>(bp.dq);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (!row_ok[half]) continue;
+    T* row = dqg + ((static_cast<long long>(rb.b) * p.Sq + rb.q0 + r / p.G) *
+                        p.H + rb.kh * p.G + r % p.G) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      store2(row + 8 * j + 2 * c, dq[j][2 * half] * p.scale,
+             dq[j][2 * half + 1] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+int row_blocks(const Params& p) {
+  return ((p.Sq + p.block_m - 1) / p.block_m) * p.K * p.B;
+}
+
+template <typename T, int D>
+int launch_fma(const Params& p, cudaStream_t stream) {
+  const size_t smem = Shape<D>::SMEM;
+  if (int e = set_smem(flash_kernel<T, D>, smem)) return e;
   const dim3 grid((p.Sq + p.block_m - 1) / p.block_m, p.K, p.B);
-  flash_kernel<T, D><<<grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(p);
+  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = TcShape<T, D>::SMEM;
+  if (int e = set_smem(flash_tc_kernel<T, D>, smem)) return e;
+  flash_tc_kernel<T, D><<<row_blocks(p), TC_THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 1 has one block per (key tile, KV head, batch row). Where that is
+// fewer than SPLIT_TARGET blocks and either too few to fill the card (under
+// SPLIT_TARGET / 4, about two an SM) or a full causal triangle, in which key
+// tile 0 sees every query and the last tile few (gemma3-1b's global layer
+// at B = 2, S = 4096: 256 blocks, one uneven wave on 132 SMs), each key
+// tile's query range is split over several blocks, whose fp32 partials a
+// last pass sums in order. A windowed layer's tiles do equal work and are
+// not split.
+constexpr int SPLIT_TARGET = 1024;
+constexpr int MAX_SPLITS = 16;
+
+template <typename T, int D>
+int kv_splits(int B, int Sk, int K, int causal, int window) {
+  const long long blocks =
+      static_cast<long long>((Sk + KvShape<T, D>::BN - 1) /
+                             KvShape<T, D>::BN) * K * B;
+  const bool few = blocks < SPLIT_TARGET / 4;
+  const bool triangle = causal && (window <= 0 || window >= Sk);
+  if (blocks >= SPLIT_TARGET || !(few || triangle)) return 1;
+  return static_cast<int>(
+      min(static_cast<long long>(MAX_SPLITS),
+          (SPLIT_TARGET + blocks - 1) / blocks));
+}
+
+template <typename T, int D>
+int launch_bwd(BwdParams bp, cudaStream_t stream) {
+  const Params& p = bp.f;
+  const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
+  flash_bwd_delta_kernel<T, D>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(bp);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+
+  using KS = KvShape<T, D>;
+  bp.splits = kv_splits<T, D>(p.B, p.Sk, p.K, p.causal, p.window);
+  if (bp.splits > 1 && bp.ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int e = set_smem(flash_bwd_dkdv_kernel<T, D>, KS::SMEM)) return e;
+  const int kv_blocks =
+      ((p.Sk + KS::BN - 1) / KS::BN) * bp.splits * p.K * p.B;
+  flash_bwd_dkdv_kernel<T, D><<<kv_blocks, BW_THREADS, KS::SMEM, stream>>>(bp);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  if (bp.splits > 1) {
+    const long long n = static_cast<long long>(p.B) * p.Sk * p.K * D;
+    const long long blocks = min((n / 2 + 255) / 256, 4096LL);
+    flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks), 256, 0,
+                                 stream>>>(bp, n);
+    if (int e = static_cast<int>(cudaGetLastError())) return e;
+  }
+
+  const size_t smem = DqShape<T, D>::SMEM;
+  if (int e = set_smem(flash_bwd_dq_kernel<T, D>, smem)) return e;
+  flash_bwd_dq_kernel<T, D><<<row_blocks(p), TC_THREADS, smem, stream>>>(bp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the forward: bf16 on the tensor cores unless `fma` asks for the FMA design
+template <typename T, int D>
+int forward(const Params& p, int fma, cudaStream_t stream) {
+  if (sizeof(T) == 2 && !fma) return launch_tc<bf16, D>(p, stream);
+  return launch_fma<T, D>(p, stream);
+}
+
 template <typename T>
-int by_dim(const Params& p, int D, void* stream) {
+int fwd_by_dim(const Params& p, int D, int fma, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 80: return launch<T, 80>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    case 256: return launch<T, 256>(p, stream);
+    case 16: return forward<T, 16>(p, fma, s);
+    case 32: return forward<T, 32>(p, fma, s);
+    case 64: return forward<T, 64>(p, fma, s);
+    case 80: return forward<T, 80>(p, fma, s);
+    case 128: return forward<T, 128>(p, fma, s);
+    case 256: return forward<T, 256>(p, fma, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int splits_by_dim(int B, int Sk, int K, int D, int causal, int window) {
+  switch (D) {
+    case 16: return kv_splits<T, 16>(B, Sk, K, causal, window);
+    case 32: return kv_splits<T, 32>(B, Sk, K, causal, window);
+    case 64: return kv_splits<T, 64>(B, Sk, K, causal, window);
+    case 80: return kv_splits<T, 80>(B, Sk, K, causal, window);
+    case 128: return kv_splits<T, 128>(B, Sk, K, causal, window);
+    case 256: return kv_splits<T, 256>(B, Sk, K, causal, window);
+    default: return 0;
+  }
+}
+
+template <typename T>
+int bwd_by_dim(const BwdParams& bp, int D, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_bwd<T, 16>(bp, s);
+    case 32: return launch_bwd<T, 32>(bp, s);
+    case 64: return launch_bwd<T, 64>(bp, s);
+    case 80: return launch_bwd<T, 80>(bp, s);
+    case 128: return launch_bwd<T, 128>(bp, s);
+    case 256: return launch_bwd<T, 256>(bp, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// every grid fits gridDim.x
+bool shape_ok(int B, int Sq, int Sk, int H, int K, int q_offset) {
+  return B >= 1 && Sq >= 1 && Sk >= 1 && K >= 1 && H % K == 0 &&
+         H / K <= ROWS && q_offset >= 0 &&
+         static_cast<long long>(max(Sq, Sk)) * K * B < (1LL << 31);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out share it). D is one of 16,
 // 32, 64, 80, 128, 256; G = H / K is at most 64. Strides are in elements;
-// the last axis of q, k and v is contiguous, out is contiguous. Returns
-// cudaGetLastError() after the launch (0 on success).
+// the last axis of q, k and v is contiguous, out (B, Sq, H, D) and lse
+// (B, H, Sq, float32) are contiguous. fma = 1 runs the fp32 FMA design for
+// bf16 too. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* out, int B,
-    int Sq, int Sk, int H, int K, int D, long long q_s0, long long q_s1,
-    long long q_s2, long long k_s0, long long k_s1, long long k_s2,
-    long long v_s0, long long v_s1, long long v_s2, float scale, int causal,
-    int window, int q_offset, int vec, void* stream) {
-  if (B < 1 || B > 65535 || Sq < 1 || Sk < 1 || K < 1 || K > 65535 ||
-      H % K != 0 || H / K > ROWS || q_offset < 0)
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    float* lse, int B, int Sq, int Sk, int H, int K, int D, long long q_s0,
+    long long q_s1, long long q_s2, long long k_s0, long long k_s1,
+    long long k_s2, long long v_s0, long long v_s1, long long v_s2,
+    float scale, int causal, int window, int q_offset, int vec, int fma,
+    void* stream) {
+  if (!shape_ok(B, Sq, Sk, H, K, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / K;
-  Params p = {q, k, v, out, B, Sq, Sk, H, K, G, ROWS / G,
+  Params p = {q, k, v, out, lse, B, Sq, Sk, H, K, G, ROWS / G,
               q_s0, q_s1, q_s2, k_s0, k_s1, k_s2, v_s0, v_s1, v_s2,
               scale, causal, window, q_offset, vec};
-  if (dtype == 0) return by_dim<float>(p, D, stream);
-  if (dtype == 1) return by_dim<__nv_bfloat16>(p, D, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return fwd_by_dim<float>(p, D, fma, s);
+  if (dtype == 1) return fwd_by_dim<bf16>(p, D, fma, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Float32 elements of scratch that flash_attention_bwd_launch needs for
+// these shapes (0: none), or -1 for shapes it does not take.
+extern "C" long long flash_attention_bwd_workspace(int dtype, int B, int Sk,
+                                                   int K, int D, int causal,
+                                                   int window) {
+  if (B < 1 || Sk < 1 || K < 1) return -1;
+  const int splits =
+      dtype == 0   ? splits_by_dim<float>(B, Sk, K, D, causal, window)
+      : dtype == 1 ? splits_by_dim<bf16>(B, Sk, K, D, causal, window)
+                   : 0;
+  if (splits < 1) return -1;
+  if (splits == 1) return 0;
+  return 2LL * splits * B * Sk * K * D;
+}
+
+// The backward: dq (B, Sq, H, D), dk and dv (B, Sk, K, D), all contiguous
+// in the inputs' dtype, from q, k, v (strided as in the forward), out, dout
+// (B, Sq, H, D) and lse (B, H, Sq) contiguous. delta (B, H, Sq, float32) and
+// ws (flash_attention_bwd_workspace floats) are scratch. Kernels on
+// `stream`: Delta, dK and dV (and the sum of their partials), dQ.
+extern "C" int flash_attention_bwd_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* delta, float* ws, void* dq,
+    void* dk, void* dv, int B, int Sq, int Sk, int H, int K, int D,
+    long long q_s0,
+    long long q_s1, long long q_s2, long long k_s0, long long k_s1,
+    long long k_s2, long long v_s0, long long v_s1, long long v_s2,
+    float scale, int causal, int window, int q_offset, int vec,
+    void* stream) {
+  if (!shape_ok(B, Sq, Sk, H, K, q_offset))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / K;
+  BwdParams bp = {{q, k, v, const_cast<void*>(out), const_cast<float*>(lse),
+                   B, Sq, Sk, H, K, G, ROWS / G, q_s0, q_s1, q_s2, k_s0,
+                   k_s1, k_s2, v_s0, v_s1, v_s2, scale, causal, window,
+                   q_offset, vec},
+                  dout, delta, dq, dk, dv, ws, 1};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_by_dim<float>(bp, D, s);
+  if (dtype == 1) return bwd_by_dim<bf16>(bp, D, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,34 +1,47 @@
-"""Whole-sequence GQA flash attention: the CUDA kernel for Hopper, its plain
-PyTorch version, and the autograd function that trains through it.
+"""Whole-sequence GQA flash attention: the CUDA kernels for Hopper (forward
+and backward), their plain PyTorch versions, and the autograd function that
+trains through them.
 
 Port of ``repro/kernels/flash_attention.py`` (the Pallas kernel
 ``flash_attention``): causal, sliding-window or bidirectional attention over
 (B, Sq, H, D) queries and (B, Sk, K, D) keys and values, H % K == 0, with a
 static ``q_offset`` (the absolute position of query 0). ``block_q``,
 ``block_k`` and ``interpret`` are the TPU's and are not carried over. The
-kernel is ``csrc/flash_attention.cu``, built by
+kernels are ``csrc/flash_attention.cu``, built by
 :mod:`repro_torch.kernels.build` and called through ``ctypes``; the note at
-the top of the source says what bounds it and how it is laid out.
+the top of the source says what bounds them and how they are laid out.
 
 :func:`flash_attention` dispatches on the tensor's device: a CUDA tensor
-runs :class:`FlashAttentionFn`, whose forward launches the kernel (counted
-in ``flash_attention.launches``) or raises, and whose backward recomputes
-:func:`flash_attention_plain` with differentiable PyTorch ops and takes its
-gradients. The JAX package has no backward kernel either: its training
-differentiates the model's ``chunked_attention``. A CPU tensor takes
-:func:`flash_attention_plain` directly.
+runs :class:`FlashAttentionFn`, whose forward launches the forward kernel
+(counted in ``flash_attention.launches``), which also writes the rows'
+log-sum-exp, and whose backward launches the backward kernel (counted in
+``flash_attention.bwd_launches``); each raises if its kernel cannot run.
+The JAX package has no backward kernel: its training differentiates the
+model's ``chunked_attention``. A CPU tensor takes
+:func:`flash_attention_plain` directly and trains by autograd through it.
 
-The plain version is the model's own
+The plain versions: :func:`flash_attention_plain` is the model's own
 :func:`repro_torch.models.attention.chunked_attention`, called with the
 model's ``kv_chunk`` and ``score_dtype`` (and so its banded path for
 whole-sequence local layers): that is what the JAX model computes, and the
-JAX ``ref.attention_ref`` delegates to it too. Like the Pallas kernel, the
-kernel takes one head dim for Q, K and V and float32 scores.
+JAX ``ref.attention_ref`` delegates to it too.
+:func:`flash_attention_lse_plain` is the masked log-sum-exp of the scaled
+scores, and :func:`flash_attention_bwd_plain` the backward's formula, both
+chunk by chunk in float32. Like the Pallas kernel, the kernels take one head
+dim for Q, K and V and float32 scores.
 
 One difference, by contract: a query with no valid key (all its keys
-masked) gets exact zeros from the kernel, as from the flash-decode kernels;
-``chunked_attention`` and the Pallas kernel give an average over masked
-keys there. No whole-sequence model call produces such a query.
+masked) gets exact zeros (and lse = -inf, and zero gradients) from the
+kernels, as from the flash-decode kernels; ``chunked_attention`` and the
+Pallas kernel give an average over masked keys there. No whole-sequence
+model call produces such a query.
+
+Numerics of the backward. In float32 it is the exact gradient of the
+forward, to round-off: Delta = rowsum(dO o out) equals rowsum(P o dP). In
+bf16 the forward rounds p to bf16 before p.V, so out differs from P V by
+bf16 round-off, and so does the kernel's dS from autograd through the plain
+version; dV uses the rounded p, as autograd through the cast does, and dS
+is rounded to bf16 before the dK and dQ products.
 """
 from __future__ import annotations
 
@@ -46,16 +59,22 @@ _lib = None
 
 
 def _library() -> ctypes.CDLL:
-    """The kernel's shared library, built and typed at first use."""
+    """The kernels' shared library, built and typed at first use."""
     global _lib
     if _lib is None:
         from .build import load
         lib = load("flash_attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [i32] + [ptr] * 4 + [i32] * 6 + [i64] * 9
-            + [ctypes.c_float] + [i32] * 4 + [ptr])
+            [i32] + [ptr] * 5 + [i32] * 6 + [i64] * 9
+            + [ctypes.c_float] + [i32] * 5 + [ptr])
         lib.flash_attention_launch.restype = i32
+        lib.flash_attention_bwd_launch.argtypes = (
+            [i32] + [ptr] * 11 + [i32] * 6 + [i64] * 9
+            + [ctypes.c_float] + [i32] * 4 + [ptr])
+        lib.flash_attention_bwd_launch.restype = i32
+        lib.flash_attention_bwd_workspace.argtypes = [i32] * 7
+        lib.flash_attention_bwd_workspace.restype = i64
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -63,7 +82,7 @@ def _library() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -72,7 +91,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: int = 0, kv_chunk: int = 1024,
                           score_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
-    """Plain version of :func:`flash_attention`: the model's
+    """Plain version of the forward's output: the model's
     ``chunked_attention`` at ``kv_chunk`` (differentiable)."""
     from repro_torch.models.attention import chunked_attention
     return chunked_attention(q, k, v, q_offset=q_offset, causal=causal,
@@ -80,14 +99,90 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              score_dtype=score_dtype)
 
 
+def _chunks(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+            window: int | None, q_offset: int, kv_chunk: int):
+    """For each chunk of keys: its slice, the float32 scaled scores
+    (B, Sq, K, G, C) and the (Sq, C) mask of valid (query, key) pairs."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qh = q.float().reshape(b, sq, kh, h // kh, d)
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+    c = max(1, min(kv_chunk, sk))
+    for k0 in range(0, sk, c):
+        blk = slice(k0, min(k0 + c, sk))
+        kp = torch.arange(blk.start, blk.stop, device=q.device)[None, :]
+        mask = torch.ones((sq, kp.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (kp <= qp)
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qh, k[:, blk].float()) \
+            / math.sqrt(d)
+        yield blk, s, mask[None, :, None, None, :]
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              q_offset: int = 0, kv_chunk: int = 1024
+                              ) -> torch.Tensor:
+    """Plain version of the forward's second output: the log-sum-exp of
+    each row's valid scaled scores, (B, H, Sq) float32, -inf for a row with
+    no valid key."""
+    b, sq, h, _ = q.shape
+    kh = k.shape[2]
+    lse = torch.full((b, sq, kh, h // kh), -math.inf, device=q.device)
+    for _, s, mask in _chunks(q, k, causal=causal, window=window,
+                              q_offset=q_offset, kv_chunk=kv_chunk):
+        s = torch.where(mask, s, -math.inf)
+        lse = torch.logaddexp(lse, torch.logsumexp(s, dim=-1))
+    return lse.reshape(b, sq, h).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, g: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              q_offset: int = 0, kv_chunk: int = 1024
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the backward kernel: dq, dk, dv in the inputs'
+    dtype from the forward's ``out`` and ``lse`` and the output's gradient
+    ``g``, by the explicit formula in float32, one chunk of keys at a time:
+    P = exp(scale S - lse) on the valid pairs, Delta = rowsum(g o out),
+    dV = P^T g, dS = P o (g V^T - Delta), dQ = scale dS K, dK = scale dS^T
+    Q (summed over each KV head's group)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    grp = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qh = q.float().reshape(b, sq, kh, grp, d)
+    gh = g.float().reshape(b, sq, kh, grp, d)
+    delta = (gh * out.float().reshape(b, sq, kh, grp, d)).sum(-1)
+    lse_h = lse.float().transpose(1, 2).reshape(b, sq, kh, grp)
+    dq = torch.zeros_like(qh)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for blk, s, mask in _chunks(q, k, causal=causal, window=window,
+                                q_offset=q_offset, kv_chunk=kv_chunk):
+        p = torch.where(mask, torch.exp(s - lse_h[..., None]), 0.0)
+        dv[:, blk] = torch.einsum("bqkgc,bqkgd->bckd", p, gh)
+        dp = torch.einsum("bqkgd,bckd->bqkgc", gh, v[:, blk].float())
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bqkgc,bckd->bqkgd", ds, k[:, blk].float()) * scale
+        dk[:, blk] = torch.einsum("bqkgc,bqkgd->bckd", ds, qh) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 
-def _count() -> None:
+def _count(name: str) -> None:
     with _count_lock:
-        flash_attention.launches += 1
+        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
 
 
 def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -128,69 +223,160 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.shape[2]} KV heads")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
-    """Run the kernel: (B, Sq, H, D) in q's dtype."""
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    dev = q.device
-    if k.device != dev or v.device != dev:
+def _prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             q_offset: int) -> list[torch.Tensor]:
+    """q, k, v checked for the kernels: one device, a head dim and group
+    size they take, one dtype, rows contiguous."""
+    _check(q, k, v)
+    d, kh = q.shape[3], k.shape[2]
+    if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one device")
-    if d not in HEAD_DIMS or h // kh > MAX_G:
+    if d not in HEAD_DIMS or q.shape[2] // kh > MAX_G:
         raise ValueError(f"flash_attention: the kernel takes head dims "
                          f"{HEAD_DIMS} and at most {MAX_G} query heads per "
-                         f"KV head, got D={d}, G={h // kh}")
-    if sk == 0 or q_offset < 0:
+                         f"KV head, got D={d}, G={q.shape[2] // kh}")
+    if k.shape[1] == 0 or q_offset < 0:
         raise ValueError(f"flash_attention: needs Sk >= 1 and q_offset >= "
-                         f"0, got Sk={sk}, q_offset={q_offset}")
+                         f"0, got Sk={k.shape[1]}, q_offset={q_offset}")
     q, k, v = _rows(q, "q"), _rows(k, "k"), _rows(v, "v")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q, k and v must share a dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    return [q, k, v]
+
+
+def _raise_on(err: int, entry: str) -> None:
+    if err:
+        msg = _library().flash_attention_error_string(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int | None, q_offset: int,
+            fma: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the forward kernel: (B, Sq, H, D) in q's dtype and the rows'
+    log-sum-exp (B, H, Sq) in float32. bf16 runs on the tensor cores;
+    ``fma`` asks for the fp32 FMA design instead (the float32 path), to
+    time the two side by side."""
+    q, k, v = _prepare(q, k, v, q_offset)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * sq == 0:
-        return out
+        return out, lse
     lib = _library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, sk, h, kh, d, *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d),
-            int(causal), 0 if window is None else int(window), int(q_offset),
-            _vec(q, k, v), stream)
-    if err:
-        raise RuntimeError(f"flash_attention_launch failed: CUDA error {err} "
-                           f"({lib.flash_attention_error_string(err).decode()})")
-    _count()
-    return out
+            out.data_ptr(), lse.data_ptr(), b, sq, sk, h, kh, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(d), int(causal),
+            0 if window is None else int(window), int(q_offset),
+            _vec(q, k, v), int(fma), stream)
+    _raise_on(err, "flash_attention_launch")
+    _count("launches")
+    return out, lse
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                causal: bool, window: int | None, q_offset: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the backward kernel: dq, dk, dv in the inputs' dtype."""
+    q, k, v = _prepare(q, k, v, q_offset)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if out.shape != q.shape or g.shape != q.shape or \
+            lse.shape != (b, h, sq):
+        raise ValueError(f"flash_attention backward: out {tuple(out.shape)}"
+                         f", g {tuple(g.shape)} and lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    out = out.to(q.dtype).contiguous()
+    g = g.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kh, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if b * sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _library()
+    # the dK/dV pass's partial sums when it splits the query range
+    win = 0 if window is None else int(window)
+    n_ws = lib.flash_attention_bwd_workspace(_DTYPES[q.dtype], b, sk, kh, d,
+                                             int(causal), win)
+    ws = torch.empty(max(n_ws, 0), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            ws.data_ptr() if n_ws > 0 else None, dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, sk, h, kh, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(d), int(causal), win, int(q_offset),
+            _vec(q, k, v, out, g), stream)
+    _raise_on(err, "flash_attention_bwd_launch")
+    _count("bwd_launches")
+    return dq, dk, dv
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None, q_offset: int = 0,
+                            kv_chunk: int = 1024
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's two outputs, (B, Sq, H, D) and the rows'
+    log-sum-exp (B, H, Sq) in float32: the kernel for a CUDA tensor, the
+    plain versions at ``kv_chunk`` for a CPU tensor."""
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_chunk=kv_chunk)
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse_plain(q, k, **kw))
+    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0,
+                        kv_chunk: int = 1024
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv from the forward's ``out`` and ``lse`` and the output's
+    gradient ``g``: the backward kernel for a CUDA tensor, its plain
+    version at ``kv_chunk`` for a CPU tensor."""
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         kv_chunk=kv_chunk)
+    return _launch_bwd(q, k, v, out, lse, g, causal=causal, window=window,
+                       q_offset=q_offset)
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: :func:`flash_attention_plain`
-    recomputed with differentiable ops at ``kv_chunk``, and its gradients
-    for q, k and v."""
+    """Forward: the forward kernel, keeping its output and log-sum-exp.
+    Backward: the backward kernel, for q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, kv_chunk):
-        out = _launch(q, k, v, causal=causal, window=window,
-                      q_offset=q_offset)
-        ctx.save_for_backward(q, k, v)
-        ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
-                        kv_chunk=kv_chunk)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _launch(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        needs = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors, needs)]
-            out = flash_attention_plain(*ins, **ctx.args)
-            wrt = [t for t, need in zip(ins, needs) if need]
-            got = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        return (*[next(got) if need else None for need in needs],
-                None, None, None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = _launch_bwd(q, k, v, out, lse, g, **ctx.args)
+        return (*[gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad[:3])],
+                None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -201,10 +387,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype. ``window``: keys with position > q_pos - window only;
     ``q_offset``: the absolute position of query 0 (keys sit at 0..Sk-1).
 
-    A CUDA tensor launches the kernel through :class:`FlashAttentionFn`
-    (float32 scores only; ``kv_chunk`` is the chunk of the backward's
-    recomputation); a CPU tensor takes :func:`flash_attention_plain` at
-    ``kv_chunk`` and ``score_dtype``."""
+    A CUDA tensor launches the kernels through :class:`FlashAttentionFn`
+    (float32 scores only); a CPU tensor takes :func:`flash_attention_plain`
+    at ``kv_chunk`` and ``score_dtype``."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -216,7 +401,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if score_dtype != torch.float32:
         raise ValueError(f"flash_attention: the kernel computes float32 "
                          f"scores, got score_dtype {score_dtype}")
-    return FlashAttentionFn.apply(q, k, v, causal, window, q_offset, kv_chunk)
+    return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -10,7 +10,13 @@ package, on the CPU.
 * At the model's ``kv_chunk`` (the banded path for local layers) it is the
   model's ``chunked_attention`` exactly, and equals JAX's within 2e-5; its
   gradients equal ``jax.grad`` of the reference's within 1e-5.
-* On a CPU tensor the wrapper takes the plain version and launches
+* The plain versions beside the kernels' other outputs:
+  ``flash_attention_lse_plain`` equals ``jax.nn.logsumexp`` of the
+  reference's masked scores, and ``flash_attention_bwd_plain`` equals
+  ``jax.grad`` of the reference's ``chunked_attention`` (causal, window 40,
+  bidirectional, GQA, ragged Sk, q_offset; 1e-5 in float32); rows with no
+  valid key get lse -inf and zero gradients.
+* On a CPU tensor the wrappers take the plain versions and launch
   nothing; the default device of the training entry points asks for CUDA
   and raises without a card.
 """
@@ -143,7 +149,7 @@ def test_empty_rows_follow_the_reference_on_the_cpu():
 
 @pytest.mark.parametrize("window", [None, 40])
 def test_gradients_match_jax(window):
-    """The backward of FlashAttentionFn is autograd through the plain
+    """On a CPU tensor the wrapper trains by autograd through the plain
     version: its gradients equal jax.grad of the reference's
     chunked_attention (1e-5)."""
     case = random_case(22, 2, 96, 96, 6, 2, 32, window=window)
@@ -161,8 +167,111 @@ def test_gradients_match_jax(window):
                                    rtol=1e-5)
 
 
+def _jax_lse(case):
+    """jax.nn.logsumexp of the reference's masked scaled scores, (B, H,
+    Sq); -inf where a row has no valid key."""
+    q, k, _ = _jax_in(case)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    s = jnp.einsum("bqkgd,bckd->bqkgc", q.reshape(b, sq, kh, h // kh, d),
+                   k) * (1.0 / np.sqrt(d))
+    qp = case["q_offset"] + jnp.arange(sq)[:, None]
+    kp = jnp.arange(sk)[None, :]
+    mask = jnp.ones((sq, sk), bool)
+    if case["causal"]:
+        mask &= kp <= qp
+    if case["window"] is not None:
+        mask &= kp > qp - case["window"]
+    s = jnp.where(mask[None, :, None, None, :], s, -jnp.inf)
+    lse = jax.nn.logsumexp(s, axis=-1).reshape(b, sq, h)
+    return np.asarray(lse.transpose(0, 2, 1))
+
+
+# the backward's cases: tests/test_kernels.py's causal, window 40,
+# bidirectional, GQA (H = 6 on K = 2), a ragged Sk and q_offset
+GRAD_CASES = {
+    "causal": dict(args=(41, 2, 96, 96, 4, 2, 32)),
+    "window_40": dict(args=(42, 2, 96, 96, 6, 2, 32), window=40),
+    "bidirectional": dict(args=(43, 1, 80, 80, 4, 4, 64), causal=False),
+    "gqa_h6_k2": dict(args=(44, 1, 64, 64, 6, 2, 16)),
+    "ragged_sk": dict(args=(45, 2, 48, 130, 4, 2, 64), q_offset=82),
+    "ragged_sk_window": dict(args=(46, 1, 40, 100, 6, 2, 32), window=24,
+                             q_offset=60),
+    "kernel_d80": dict(args=(47, 1, 70, 70, 4, 4, 80)),
+}
+
+
+def _grad_case(name):
+    spec = dict(GRAD_CASES[name])
+    return random_case(*spec.pop("args"), **spec)
+
+
+@pytest.mark.parametrize("name", sorted(kernel_cases()))
+def test_lse_plain_matches_jax(name):
+    case = kernel_cases()[name]
+    got = fa.flash_attention_lse_plain(*_torch_in(case)[:2], **_kw(case),
+                                       kv_chunk=64)
+    assert got.shape == (case["q"].shape[0], case["q"].shape[2],
+                         case["q"].shape[1]) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _jax_lse(case), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_bwd_plain_matches_jax_grad(name):
+    """The backward's plain version, given the plain forward's out and lse
+    and the output gradient g, equals jax.grad of the reference's
+    chunked_attention through sum(out * g), in float32 (1e-5)."""
+    case = _grad_case(name)
+    g = np.random.RandomState(5).randn(*case["q"].shape).astype(np.float32)
+    q, k, v = _torch_in(case)
+    out = fa.flash_attention_plain(q, k, v, **_kw(case))
+    lse = fa.flash_attention_lse_plain(q, k, **_kw(case))
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, torch.from_numpy(g),
+                                       **_kw(case), kv_chunk=32)
+
+    def loss(q, k, v):
+        o = jax_chunked(q, k, v, kv_chunk=32, **_kw(case))
+        return (o * jnp.asarray(g)).sum()
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax_in(case))
+    for t, w in zip(got, want):
+        assert t.dtype == torch.float32
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_rows_without_keys_get_zero_gradients():
+    """Rows with no valid key: lse -inf, zero dq, and nothing in dk or dv
+    (the same as with their output gradient zeroed)."""
+    case, empty = empty_rows_case()
+    q, k, v = _torch_in(case)
+    lse = fa.flash_attention_lse_plain(q, k, **_kw(case))
+    assert bool((lse[:, :, empty] == -np.inf).all())
+    assert bool(torch.isfinite(lse[:, :, :empty[0]]).all())
+    out = fa.flash_attention_plain(q, k, v, **_kw(case))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                              **_kw(case))
+    assert bool((dq[:, empty] == 0).all())
+    g0 = g.clone()
+    g0[:, empty] = 0
+    _, dk0, dv0 = fa.flash_attention_bwd_plain(q, k, v, out, lse, g0,
+                                               **_kw(case))
+    assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+
+
+def test_bwd_plain_takes_the_inputs_dtype():
+    case = _grad_case("gqa_h6_k2")
+    q, k, v = _torch_in(case, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(q))
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 3
+    assert [t.shape for t in grads] == [q.shape, k.shape, v.shape]
+
+
 def test_cpu_tensor_takes_plain_version_without_launch():
-    before = fa.flash_attention.launches
+    before = fa.flash_attention.launches, fa.flash_attention.bwd_launches
     case = kernel_case(*KERNEL_SHAPES[1])
     q, k, v = _torch_in(case)
     want = fa.flash_attention_plain(q, k, v, window=96, kv_chunk=256)
@@ -172,9 +281,19 @@ def test_cpu_tensor_takes_plain_version_without_launch():
                        want)
     bf = fa.flash_attention(q, k, v, window=96, score_dtype=torch.bfloat16)
     assert bf.shape == q.shape and bool(torch.isfinite(bf).all())
-    assert fa.flash_attention.launches == before
+    out, lse = fa.flash_attention_forward(q, k, v, window=96, kv_chunk=256)
+    assert torch.equal(out, want)
+    assert torch.equal(lse, fa.flash_attention_lse_plain(q, k, window=96,
+                                                         kv_chunk=256))
+    g = torch.ones_like(q)
+    for t, w in zip(fa.flash_attention_bwd(q, k, v, out, lse, g, window=96),
+                    fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                 window=96)):
+        assert torch.equal(t, w)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.bwd_launches) == before
     if not torch.cuda.is_available():
-        assert before == 0
+        assert before == (0, 0)
 
 
 def test_wrapper_checks_shapes_and_devices():

@@ -1,5 +1,5 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on
-the card.
+"""The CUDA flash-attention kernels (forward and backward) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``: they skip where no CUDA device is present. The file imports
 no jax, so it runs on a GPU machine without the JAX reference:
@@ -12,6 +12,9 @@ import torch
 from _flash_attention_cases import (ATOL_BF16, empty_rows_case, kernel_cases,
                                     random_case)
 from repro_torch.kernels import flash_attention as fa
+
+GRAD_ATOL = 1e-5     # float32 gradients against the plain version
+LSE_ATOL = 1e-5      # the log-sum-exp against the plain version
 
 
 @pytest.fixture
@@ -60,11 +63,19 @@ def test_rows_without_keys_are_zero_on_card(cuda_device):
     keep = [i for i in range(q.shape[1]) if i not in empty]
     torch.testing.assert_close(got[:, keep], want[:, keep], atol=2e-5,
                                rtol=2e-5)
+    out, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    assert bool((lse[:, :, empty] == -float("inf")).all())
+    dq, _, _ = fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(q),
+                                      **kw(case))
+    assert bool((dq[:, empty] == 0).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, 40])
-def test_gradients_through_kernel_on_card(window, cuda_device):
+def test_gradients_through_kernel_on_card(window, cuda_device, monkeypatch):
+    """FlashAttentionFn's gradients equal autograd through the plain
+    version; its backward is one launch of the backward kernel and calls
+    no plain version."""
     case = random_case(31, 2, 96, 96, 6, 2, 32, window=window)
     w = torch.randn(case["q"].shape, device=cuda_device,
                     generator=torch.Generator(device=cuda_device).manual_seed(1))
@@ -73,18 +84,79 @@ def test_gradients_through_kernel_on_card(window, cuda_device):
         q, k, v = inputs(case, cuda_device, grad=True)
         out = fn(q, k, v, window=window, kv_chunk=32)
         return torch.autograd.grad((out * w).sum(), (q, k, v))
-    for g, want in zip(grads(fa.flash_attention),
-                       grads(fa.flash_attention_plain)):
-        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+    want = grads(fa.flash_attention_plain)
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+    for name in ("flash_attention_plain", "flash_attention_lse_plain",
+                 "flash_attention_bwd_plain"):
+        monkeypatch.setattr(fa, name, plain_called)
+    before = fa.flash_attention.launches, fa.flash_attention.bwd_launches
+    got = grads(fa.flash_attention)
+    assert (fa.flash_attention.launches, fa.flash_attention.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
+    for g, wg in zip(got, want):
+        torch.testing.assert_close(g, wg, atol=GRAD_ATOL, rtol=GRAD_ATOL)
 
 
 @pytest.mark.cuda
 def test_kernel_is_deterministic_on_card(cuda_device):
+    """Two runs of the forward (output and lse) and of the backward are
+    bit-identical: no atomics, a fixed summation order."""
     case = random_case(32, 2, 300, 300, 8, 2, 128, window=100)
     q, k, v = inputs(case, cuda_device, torch.bfloat16)
     a = fa.flash_attention(q, k, v, **kw(case))
     b = fa.flash_attention(q, k, v, **kw(case))
     assert torch.equal(a, b)
+    out, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    out2, lse2 = fa.flash_attention_forward(q, k, v, **kw(case))
+    assert torch.equal(out, a) and torch.equal(out2, a)
+    assert torch.equal(lse, lse2)
+    g = torch.randn(q.shape, device=cuda_device, dtype=q.dtype,
+                    generator=torch.Generator(device=cuda_device).manual_seed(2))
+    first = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw(case))
+    second = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw(case))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("name", sorted(kernel_cases()))
+def test_lse_matches_plain_on_card(name, dtype, cuda_device):
+    case = kernel_cases()[name]
+    q, k, v = inputs(case, cuda_device, dtype)
+    _, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    want = fa.flash_attention_lse_plain(q.float(), k.float(),
+                                        **kw(case))
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    torch.testing.assert_close(lse, want, atol=LSE_ATOL, rtol=LSE_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("name", sorted(kernel_cases()))
+def test_backward_kernel_matches_plain_on_card(name, dtype, cuda_device):
+    """dq, dk, dv of the backward kernel against its plain version in
+    float32 on the same inputs and the forward kernel's out and lse:
+    float32 within 1e-5, bf16 within 2e-2."""
+    case = kernel_cases()[name]
+    q, k, v = inputs(case, cuda_device, dtype)
+    g = torch.randn(q.shape, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(3)).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    before = fa.flash_attention.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw(case))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(
+        *(t.float() for t in (q, k, v, out)), lse, g.float(), **kw(case))
+    tol = GRAD_ATOL if dtype == torch.float32 else ATOL_BF16
+    for t, w, ref in zip(got, want, (q, k, v)):
+        assert t.dtype == dtype and t.shape == ref.shape
+        torch.testing.assert_close(t.float(), w, atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
