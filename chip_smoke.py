@@ -27,12 +27,16 @@ bound. Phases:
 7. build of the flash-decode kernels (started beside the writhe build in
    phase 2), with the build time and ptxas' report;
 8. flash-decode kernels against their plain versions on the card: the
-   cases of tests/test_serve.py in float32 at atol 2e-5 (empty lanes
-   exactly zero), then the main path's shapes in bf16 against the plain
-   version in float32 on the same bf16 inputs at 2e-2;
+   cases of tests/test_serve.py and the split's edges in float32 at atol
+   2e-5 (empty lanes exactly zero), then the main path's shapes in bf16
+   against the plain version in float32 on the same bf16 inputs at 2e-2;
+   every call bit-identical to a second one;
 9. flash-decode timing at the main path's shapes and at B=64 x 8192 keys
-   (stablelm width): kernel, plain version, one
-   ``scaled_dot_product_attention`` call as the yardstick, and the bound;
+   (stablelm width), each call queued behind a spin on the card so that
+   its device time alone is timed: kernel, plain version, one
+   ``scaled_dot_product_attention`` call as the yardstick, and the bound,
+   with the split count and blocks launched at each; the wrapper's host
+   time a call at the gemma3-1b shapes (1000 calls, host clock, no sync);
 10. the serving main path: gemma3-1b at full width in bf16 (random weights
    from ``init_params``), a paged flash ``ServeEngine`` behind
    ``serve_pipeline``: 16 requests in two generate tasks answered with 16
@@ -95,12 +99,19 @@ It exits non-zero, and prints no result, when CUDA is unavailable, when the
 repository's sources are missing, or when any phase fails.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+
+``python3 chip_smoke.py --against DIR`` runs none of the phases: it sets
+the flash-decode wrappers of this checkout beside those of the checkout at
+DIR (the parent commit, unpacked with ``git archive``) in one process, host
+time a call in alternating pairs and device time at phase 9's shapes, and
+prints the readings as one JSON line, then the card's name and power limit.
 """
 from __future__ import annotations
 
 import contextlib
 import filecmp
 import json
+import math
 import os
 import re
 import shutil
@@ -462,7 +473,6 @@ SERVE_ARCH = "gemma3_1b"
 # 16 requests make two generate tasks of the pipeline's batch of 8: the
 # second reuses the slots and pages the first returned
 N_TEXTS, MAX_NEW, N_EXACT, MAX_NEW_EXACT = 16, 16, 4, 8
-LARGE = dict(b=64, s=8192, kh=32, g=1, d=64, page_size=64)
 L2_BYTES = 64 << 20                        # more than the 50 MB L2
 
 
@@ -503,7 +513,9 @@ def phase_flash_check(fd, fdc) -> dict:
         case = make()
         t = _fd_inputs(case, torch.float32)
         got = _fd_call(fd, case, t)
+        again = _fd_call(fd, case, t)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), (name, "not bit-identical")
         want = _fd_call(fd, case, t, plain=True)
         assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, atol=FD_ATOL_F32, rtol=0)
@@ -514,11 +526,14 @@ def phase_flash_check(fd, fdc) -> dict:
         e = float((got - want).abs().max())
         err_f32[_fd_name(case)] = max(err_f32[_fd_name(case)], e)
         log(f"  f32 {name:<22} {_fd_name(case):<18} max |kernel - plain| "
-            f"{e:.3g}, empty lanes {list(case['empty'])} exactly 0  ok")
+            f"{e:.3g}, empty lanes {list(case['empty'])} exactly 0, "
+            f"bit-identical twice  ok")
     for name, case in fdc.main_path_cases().items():
         t = _fd_inputs(case, torch.bfloat16)
         got = _fd_call(fd, case, t)
+        again = _fd_call(fd, case, t)
         torch.cuda.synchronize()
+        assert torch.equal(got, again), (name, "not bit-identical")
         t32 = dict(t, q=t["q"].float(), k=t["k"].float(), v=t["v"].float())
         want = _fd_call(fd, case, t32, plain=True)
         assert got.dtype == torch.bfloat16
@@ -528,20 +543,31 @@ def phase_flash_check(fd, fdc) -> dict:
         err[_fd_name(case)] = max(err[_fd_name(case)], e)
         log(f"  bf16 {name:<21} {_fd_name(case):<18} q {tuple(case['q'].shape)}"
             f" k {tuple(case['k'].shape)}: max |kernel - plain fp32| {e:.3g}"
-            f"  ok")
+            f", bit-identical twice  ok")
     return {k: max(err[k], err_f32[k]) for k in err} | {
         f"{k}_f32": v for k, v in err_f32.items()}
 
 
-def _median_flushed(fn, reps: int, warmup: int = 2) -> float:
+# about half a millisecond of spinning, longer than a wrapper's host time
+QUEUE_CYCLES = 1_000_000
+
+
+def _median_flushed(fn, reps: int, warmup: int = 2,
+                    queued: bool = False) -> float:
     """Median device time of ``fn`` (CUDA events), the L2 cache flushed
-    before each timed run, as a decode step finds it after other layers."""
+    before each timed run, as a decode step finds it after other layers.
+    With ``queued`` the card spins after the flush (``torch.cuda._sleep``)
+    while the host enqueues the call, so a call whose device time is shorter
+    than its host time is timed on the device alone, without the host's
+    launch time between the events."""
     scratch = torch.empty(L2_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         scratch.zero_()
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -592,13 +618,36 @@ def _sdpa_inputs(case, t):
     return q, k, v, attn_mask
 
 
+HOST_CALLS, HOST_BATCH = 1000, 100
+
+
+def host_us(fn) -> float:
+    """The host's time a call of ``fn``: HOST_CALLS calls on the host clock
+    in batches of HOST_BATCH, no sync inside a batch; the card drains
+    between batches (not timed), so the launch queue never fills. The median
+    of the batches' means, as the host's clock is shared."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(HOST_CALLS // HOST_BATCH):
+        t0 = time.perf_counter()
+        for _ in range(HOST_BATCH):
+            fn()
+        per_call.append((time.perf_counter() - t0) / HOST_BATCH)
+        torch.cuda.synchronize()
+    return statistics.median(per_call) * 1e6
+
+
 def _time_case(fd, label, case, t, valid_pairs, reps) -> dict:
     b, _, h, dk = t["q"].shape
     kh, dv = t["k"].shape[2], t["v"].shape[3]
     index_ints = t["table" if case["kind"] == "paged" else "kpos"].numel()
-    ms = _median_flushed(lambda: _fd_call(fd, case, t), reps)
+    ms = _median_flushed(lambda: _fd_call(fd, case, t), reps, queued=True)
+    # the plan the wrapper gave the kernel in the timed calls
+    n_split, _, grid = getattr(fd, _fd_name(case)).last_plan
+    blocks = math.prod(grid)
     plain_ms = _median_flushed(lambda: _fd_call(fd, case, t, plain=True),
-                               max(3, reps // 4), warmup=1)
+                               max(3, reps // 4), warmup=1, queued=True)
     q, k, v, mask = _sdpa_inputs(case, t)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -608,7 +657,7 @@ def _time_case(fd, label, case, t, valid_pairs, reps) -> dict:
     torch.testing.assert_close(library().transpose(1, 2).float(),
                                _fd_call(fd, case, t).float(),
                                atol=FD_ATOL_BF16, rtol=FD_ATOL_BF16)
-    library_ms = _median_flushed(library, reps)
+    library_ms = _median_flushed(library, reps, queued=True)
     bound_ms, bound_by, parts = _fd_bound(valid_pairs, kh, h // kh, dk, dv,
                                           b, index_ints, t["q"].element_size())
     log(f"  {_fd_name(case):<18} {label:<16} B={b} K={kh} G={h // kh} D={dk}: "
@@ -616,17 +665,19 @@ def _time_case(fd, label, case, t, valid_pairs, reps) -> dict:
         f"ms{' (masked)' if mask is not None else ''}; bound {bound_ms:.4f} "
         f"ms ({bound_by}: {parts['bytes'] / 1e6:.2f} MB, {valid_pairs} valid "
         f"slot-keys), {bound_ms / ms:.1%} of it, "
-        f"{parts['bytes'] / ms / 1e6:.0f} GB/s")
+        f"{parts['bytes'] / ms / 1e6:.0f} GB/s; {n_split} split(s), "
+        f"{blocks} blocks")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "n_split": n_split, "blocks": blocks,
             "shape": {"B": b, "K": kh, "G": h // kh, "D": dk,
                       "valid_slot_keys": valid_pairs}}
 
 
-def _large_case(kind: str) -> tuple[dict, dict, int]:
+def _large_case(fdc, kind: str) -> tuple[dict, dict, int]:
     """B=64 slots x 8192 cached tokens at stablelm width in bf16 (4.3 GB of
     K/V), made on the card; every key valid."""
-    c = LARGE
+    c = fdc.LARGE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(11)
     b, s, kh, d = c["b"], c["s"], c["kh"], c["d"]
 
@@ -660,10 +711,112 @@ def phase_flash_timing(fd, fdc) -> dict:
         out[label] = _time_case(fd, label, case,
                                 _fd_inputs(case, torch.bfloat16),
                                 fdc.valid_keys(case), reps=50)
+    for label in ("gemma3_1b_ring", "gemma3_1b_paged"):
+        case = main[label]
+        t = _fd_inputs(case, torch.bfloat16)
+        out[label]["host_us"] = us = host_us(lambda: _fd_call(fd, case, t))
+        log(f"  {_fd_name(case):<18} {label:<16} host time a call "
+            f"{us:.2f} us ({HOST_CALLS} calls, host clock, no sync)")
     for kind in ("dense", "paged"):
-        case, t, valid = _large_case(kind)
+        case, t, valid = _large_case(fdc, kind)
         out[f"large_{kind}"] = _time_case(fd, f"large_{kind}", case, t,
                                           valid, reps=10)
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- against another checkout ------------------------------------------------
+
+AGAINST_PAIRS = 20
+
+
+def _load_against(other: Path):
+    """``build`` and ``kernels.flash_decode`` of the checkout at ``other``,
+    imported under another package name beside this tree's (its libraries
+    build under ``other/build``)."""
+    import importlib
+    import importlib.util
+    name = "_against_repro_torch"
+    pkg = other.resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{name}.kernels.build"),
+            importlib.import_module(f"{name}.kernels.flash_decode"))
+
+
+def _spread(xs: list[float]) -> dict:
+    q1, _, q3 = statistics.quantiles(xs, n=4)
+    return {"median": statistics.median(xs), "q1": q1, "q3": q3,
+            "min": min(xs), "max": max(xs)}
+
+
+def compare_against(other: Path, fd, build, fdc, smi: str) -> dict:
+    """This tree's flash-decode wrappers beside the checkout at ``other``'s
+    (its parent, say), in one process on one card. Host time a call
+    (:func:`host_us`) at the gemma3-1b shapes in AGAINST_PAIRS pairs that
+    alternate which tree runs first, with each side's spread and that of
+    the paired differences; then device time at the six phase-9 shapes in
+    the order other, this, this, other, queued as phase 9 times it and
+    unqueued (the host's launch time inside the events, as phase 9 timed
+    before it queued)."""
+    other_build, other_fd = _load_against(other)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(lambda b: b.build("flash_decode"),
+                              (build, other_build)))
+    for side, res in zip(("this", "other"), built):
+        log(f"build flash_decode.cu ({side}): {res.seconds:.2f} s -> "
+            f"{res.path}")
+    trees = {"this": fd, "other": other_fd}
+    main = fdc.main_path_cases()
+    out: dict = {"against": str(other), "card": smi, "pairs": AGAINST_PAIRS,
+                 "host_us": {}, "device_ms": {}}
+    log(f"== host time a call, {AGAINST_PAIRS} alternating pairs ({smi})")
+    for label in ("gemma3_1b_ring", "gemma3_1b_paged"):
+        case = main[label]
+        t = _fd_inputs(case, torch.bfloat16)
+        for side in trees:          # build, load and warm both
+            _fd_call(trees[side], case, t)
+        reads: dict = {"this": [], "other": []}
+        for i in range(AGAINST_PAIRS):
+            for side in (("other", "this") if i % 2 == 0
+                         else ("this", "other")):
+                reads[side].append(
+                    host_us(lambda: _fd_call(trees[side], case, t)))
+        diff = [a - b for a, b in zip(reads["this"], reads["other"])]
+        out["host_us"][label] = {
+            "this": _spread(reads["this"]), "other": _spread(reads["other"]),
+            "this_minus_other": _spread(diff), "readings": reads}
+        for side in ("this", "other", "this_minus_other"):
+            sp = out["host_us"][label][side]
+            log(f"  {label:<16} {side:<16} median {sp['median']:.2f} us, "
+                f"quartiles {sp['q1']:.2f}-{sp['q3']:.2f}, range "
+                f"{sp['min']:.2f}-{sp['max']:.2f}")
+    log("== device time a call: other, this, this, other")
+    shapes = [(label, main[label], None) for label in fdc.MAIN_PATH]
+    shapes += [(f"large_{kind}", None, kind) for kind in ("dense", "paged")]
+    for label, case, large in shapes:
+        if large:
+            case, t, _ = _large_case(fdc, large)
+            reps = 10
+        else:
+            t = _fd_inputs(case, torch.bfloat16)
+            reps = 50
+        out["device_ms"][label] = {}
+        for queued in (True, False):
+            times: dict = {"this": [], "other": []}
+            for side in ("other", "this", "this", "other"):
+                times[side].append(_median_flushed(
+                    lambda: _fd_call(trees[side], case, t), reps,
+                    queued=queued))
+            how = "queued" if queued else "unqueued"
+            out["device_ms"][label][how] = times
+            log(f"  {label:<16} {how:<8} other {times['other'][0]:.4f} / "
+                f"{times['other'][1]:.4f} ms, this {times['this'][0]:.4f} / "
+                f"{times['this'][1]:.4f} ms")
         del t
         torch.cuda.empty_cache()
     return out
@@ -2027,6 +2180,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
+        import _flash_decode_cases as fdc
+        from repro_torch.kernels import build
+        from repro_torch.kernels import flash_decode as fd
+        torch.cuda.set_device(0)
+        smi = nvidia_smi()
+        print(json.dumps(compare_against(Path(sys.argv[2]), fd, build, fdc,
+                                         smi)))
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"usage: {Path(__file__).name} [--against CHECKOUT]",
+              file=sys.stderr)
+        return 2
     import _flash_attention_cases as fc
     import _flash_decode_cases as fdc
     import _ssd_cases as sc
@@ -2067,7 +2234,8 @@ def main() -> int:
         phase_flash_build(fd, pending["flash_decode"])
     log("== 8. flash-decode kernels against their plain versions on the card")
     fd_err = phase_flash_check(fd, fdc)
-    log("== 9. flash-decode timing (median, CUDA events, L2 flushed)")
+    log("== 9. flash-decode timing (median, CUDA events, L2 flushed, "
+        "queued)")
     fd_time = phase_flash_timing(fd, fdc)
     log(f"== 10. serving main path: KsaCluster.run_campaign(serve_pipeline), "
         f"{SERVE_ARCH} at full width")
@@ -2177,6 +2345,9 @@ def main() -> int:
             # on the gathered logical view, the gather not timed)
             "library_ms": at["library_ms"],
             "shape": at["shape"] | {"case": main_shape},
+            "n_split": at["n_split"],
+            "blocks": at["blocks"],
+            "host_us": at["host_us"],
             "max_abs_err_f32": fd_err[name + "_f32"],
             "large": large,
             "stablelm": fd_time["stablelm_" + ("paged" if "paged" in name

@@ -9,6 +9,11 @@ the top of the source says what bounds them and how they are laid out.
 reference's XLA twins ``flash_decode_xla`` and ``flash_decode_paged_xla``,
 ``bounded`` included.
 
+The kernels split each slot's key range over the blocks of a thread-block
+cluster and merge the blocks' partial softmax states by log-sum-exp in the
+same launch. How many splits is :func:`split_plan`'s choice, a pure
+function of shapes and the SM count.
+
 The contract is the reference's. Ragged continuous batching is expressed by
 positions: ``q_positions`` (B,) is each slot's decode position, and for the
 dense cache ``k_positions`` (B, S) the position each cache row holds, with
@@ -20,12 +25,15 @@ A slot with no valid key gets exact zeros.
 :func:`flash_decode` and :func:`flash_decode_paged` dispatch on the tensor's
 device: a CUDA tensor launches the kernel (counted in ``.launches``) or
 raises, a CPU tensor takes the plain version; there is no interpret
-switch. ``decode_attention`` and ``decode_attention_paged``, the names the
-model calls as in the reference, are the same functions.
+switch. After a launch the wrapper's ``.last_plan`` holds what it gave the
+kernel: (splits, tiles or pages a split, grid). ``decode_attention`` and
+``decode_attention_paged``, the names the model calls as in the reference,
+are the same functions.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -33,9 +41,13 @@ import torch
 
 NEG_INF = -1e30
 MAX_G, MAX_D = 8, 256       # as in csrc/flash_decode.cu
+TILE = 32                   # rows per tile, as in csrc/flash_decode.cu
+BLOCKS_PER_SM = 4           # the split aims at this many blocks an SM
+MAX_SPLIT = 16              # blocks in a cluster, as csrc/flash_decode.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 _lib = None
+_sms: dict[int, int] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -46,11 +58,11 @@ def _library() -> ctypes.CDLL:
         lib = load("flash_decode")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_decode_launch.argtypes = (
-            [i32] + [ptr] * 6 + [i32] * 6 + [i64] * 6
+            [i32] + [ptr] * 6 + [i32] * 8 + [i64] * 6
             + [ctypes.c_float, i32, i32, i32, ptr])
         lib.flash_decode_launch.restype = i32
         lib.flash_decode_paged_launch.argtypes = (
-            [i32] + [ptr] * 6 + [i32] * 7 + [i64] * 6
+            [i32] + [ptr] * 6 + [i32] * 9 + [i64] * 6
             + [ctypes.c_float, i32, i32, ptr])
         lib.flash_decode_paged_launch.restype = i32
         lib.flash_decode_error_string.argtypes = [i32]
@@ -59,9 +71,11 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _count(fn) -> None:
+def _count(fn, plan: tuple[int, int, tuple[int, int, int]]) -> None:
+    """One launch of ``fn``'s kernel, given ``plan``."""
     with _count_lock:
         fn.launches += 1
+        fn.last_plan = plan
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,6 +133,52 @@ def _window(window: int | None) -> int:
     return int(window)
 
 
+# ---------------------------------------------------------------------------
+# the split over blocks
+# ---------------------------------------------------------------------------
+
+
+def even_split(n_units: int, n: int) -> tuple[int, int]:
+    """``n_units`` units in at most ``n`` runs of equal length but the last:
+    returns (runs, units per run), no run empty."""
+    per = -(-n_units // max(1, min(n, n_units)))
+    return -(-n_units // per), per
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(n_units: int, unit_rows: int, pairs: int,
+               n_sm: int) -> tuple[int, int]:
+    """How the kernels split each (slot, KV head)'s key rows over blocks:
+    returns (n_split, units per split).
+
+    A unit is a tile of ``TILE`` rows (dense cache: ``ceil(S / TILE)``
+    units) or a page of ``unit_rows`` rows (paged: ``n_pages`` units, so
+    splits fall on page boundaries). ``pairs`` is B * K. The plan aims at
+    ``BLOCKS_PER_SM * n_sm`` blocks, splits no further than about a tile a
+    block and no more than ``MAX_SPLIT`` ways (a cluster), and does not
+    split where the pairs alone reach that. It reads only shapes, never
+    positions, so the wrapper needs nothing back from the card."""
+    if n_units < 1 or pairs < 1:
+        return 1, max(n_units, 1)
+    want = -(-BLOCKS_PER_SM * n_sm // pairs)
+    min_units = -(-TILE // unit_rows)
+    return even_split(n_units, min(want, MAX_SPLIT,
+                                   -(-n_units // min_units)))
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sms.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device.index] = n
+    return n
+
+
+def _plan(device: torch.device, n_units: int, unit_rows: int,
+          pairs: int) -> tuple[int, int]:
+    return split_plan(n_units, unit_rows, pairs, _sm_count(device))
+
+
 def _launch(fn_name: str, args: list) -> None:
     lib = _library()
     err = getattr(lib, fn_name)(*args)
@@ -148,41 +208,45 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_k`` is the plain version's block; the kernel's tile is its own.
     """
     b, h, kh, g = _check(q, k, v, "flash_decode")
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return flash_decode_ref(q, k, v, q_positions, k_positions,
                                 window=window, block_k=block_k, scale=scale,
                                 bounded=bounded)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {dev}")
     _check_cuda(q, k, v, "flash_decode")
     s, dk, dv = k.shape[1], k.shape[3], v.shape[3]
-    out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
     if b == 0 or s == 0:
         return out.zero_()
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     q = q.contiguous()
-    qp = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    qp = q_positions.to(device=dev, dtype=torch.int32).contiguous()
     if k_positions is None:
         kp = torch.arange(s, dtype=torch.int32,
-                          device=q.device).expand(b, s).contiguous()
+                          device=dev).expand(b, s).contiguous()
     else:
-        kp = k_positions.to(device=q.device, dtype=torch.int32).contiguous()
+        kp = k_positions.to(device=dev, dtype=torch.int32).contiguous()
     if qp.shape != (b,) or kp.shape != (b, s):
         raise ValueError(f"flash_decode: positions {tuple(qp.shape)}, "
                          f"{tuple(kp.shape)} do not fit B={b}, S={s}")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        n, per = _plan(dev, -(-s // TILE), TILE, b * kh)
         _launch("flash_decode_launch", [
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
-            b, s, kh, g, dk, dv, *k.stride()[:3], *v.stride()[:3],
-            float(scale), _window(window), int(bounded), _vec(k, v), stream])
-    _count(flash_decode)
+            b, s, kh, g, dk, dv, per * TILE, n, *k.stride()[:3],
+            *v.stride()[:3], float(scale), _window(window), int(bounded),
+            _vec(k, v), stream])
+    _count(flash_decode, (n, per, (n, kh, b)))
     return out
 
 
 flash_decode.launches = 0
+flash_decode.last_plan = None
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -276,42 +340,45 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     row itself and stops at the page that holds the query's position; a
     CPU tensor takes :func:`flash_decode_paged_ref`."""
     b, h, kh, g = _check(q, pool_k, pool_v, "flash_decode_paged")
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return flash_decode_paged_ref(q, pool_k, pool_v, q_positions,
                                       page_table, window=window, scale=scale)
-    if q.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"flash_decode_paged runs on cuda or cpu, not "
-                         f"{q.device}")
+                         f"{dev}")
     _check_cuda(q, pool_k, pool_v, "flash_decode_paged")
     page_size, dk, dv = pool_k.shape[1], pool_k.shape[3], pool_v.shape[3]
-    out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
     n_pages = page_table.shape[-1] if page_table.dim() == 2 else 0
     if b == 0 or n_pages == 0:
         return out.zero_()
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     q = q.contiguous()
-    qp = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    qp = q_positions.to(device=dev, dtype=torch.int32).contiguous()
+    table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     if qp.shape != (b,) or table.shape[0] != b:
         raise ValueError(f"flash_decode_paged: positions {tuple(qp.shape)} "
                          f"and table {tuple(table.shape)} do not fit B={b}")
     if page_size * n_pages > 2**31 - 1:
         raise ValueError("flash_decode_paged: pages_per_slot * page_size "
                          "must fit in 32 bits")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        n, per = _plan(dev, n_pages, page_size, b * kh)
         _launch("flash_decode_paged_launch", [
             _DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), qp.data_ptr(), table.data_ptr(),
             out.data_ptr(), b, kh, g, dk, dv, page_size, n_pages,
-            *pool_k.stride()[:3], *pool_v.stride()[:3], float(scale),
-            _window(window), _vec(pool_k, pool_v), stream])
-    _count(flash_decode_paged)
+            per, n, *pool_k.stride()[:3], *pool_v.stride()[:3],
+            float(scale), _window(window), _vec(pool_k, pool_v), stream])
+    _count(flash_decode_paged, (n, per, (n, kh, b)))
     return out
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.last_plan = None
 
 
 def flash_decode_paged_ref(q: torch.Tensor, pool_k: torch.Tensor,

@@ -1,9 +1,11 @@
 """Flash-decode inputs shared by the port's CPU tests, its card tests and
 ``chip_smoke.py``: the cases of ``tests/test_serve.py`` (causal and ragged
 for GQA groups 1, 2 and 4, window, ring positions, padded and empty lanes,
-paged), one with Dv != Dk, and the serving main path's shapes. All from
-numpy seeds; imports neither jax nor the port, so the card tests and the
-smoke script run where jax is absent.
+paged), one with Dv != Dk, the edges of the kernels' split of the key range
+over blocks (a long sparse cache, a window whose ends fall inside splits,
+live pages separated by unbound ones, slots with no valid key), and the
+serving main path's shapes. All from numpy seeds; imports neither jax nor
+the port, so the card tests and the smoke script run where jax is absent.
 
 A case is a dict: ``kind`` ("dense" | "paged"), float32 arrays ``q``
 (B, 1, H, Dk) and ``k``/``v`` (dense (B, S, K, D), paged (P, page_size,
@@ -126,6 +128,66 @@ def _paged_window_unbound():
                 table=table, window=10, empty=(2,))
 
 
+def _long_sparse():
+    """S = 4096 rows: slots at positions 0, 1, 63, 64 and S - 1, a third of
+    each prefix's rows invalid, so whole tiles and splits hold no key."""
+    rng = np.random.default_rng(7)
+    s = 4096
+    q, k, v = _rand_qkv(rng, b=5, s=s, h=2, kh=1, dk=8)
+    qpos = [0, 1, 63, 64, s - 1]
+    kpos = dense_kpos(qpos, s)
+    kpos[rng.random(kpos.shape) < 1 / 3] = -1
+    kpos[3, :64] = -1            # slot 3 keeps only position 64
+    kpos[3, 64] = 64
+    kpos[4, 100:4000] = -1       # slot 4: two far-apart runs
+    kpos[0, 0] = 0               # slots 0 and 1 keep position 0
+    kpos[1, 0] = 0
+    return _dense(q, k, v, qpos, kpos, block_k=128)
+
+
+def _window_inside_splits():
+    """A window whose first and last keys fall inside 32-row tiles (and so
+    inside splits), on a dense and bounded cache."""
+    rng = np.random.default_rng(8)
+    q, k, v = _rand_qkv(rng, b=3, s=256, h=4, kh=2, dk=16)
+    qpos = [100, 150, 237]
+    return _dense(q, k, v, qpos, dense_kpos(qpos, 256), window=45,
+                  block_k=32)
+
+
+def _paged_gaps():
+    """Live pages separated by unbound ones, a window across them, and pages
+    past the slot's position bound (never read)."""
+    rng = np.random.default_rng(9)
+    b, kh, h, dk, ps, pps, npg = 3, 2, 4, 8, 8, 12, 40
+    pool_k = rng.standard_normal((npg, ps, kh, dk)).astype(np.float32)
+    pool_v = rng.standard_normal((npg, ps, kh, dk)).astype(np.float32)
+    q = rng.standard_normal((b, 1, h, dk)).astype(np.float32)
+    qpos = np.asarray([60, 90, 45], np.int32)
+    table = bind_pages(qpos, ps, pps, npg, np.random.RandomState(2))
+    table[0, [1, 3, 4, 6]] = -1
+    table[1, [0, 2, 5, 6, 7, 9]] = -1
+    table[2, 1:5] = -1
+    table[2, 6:] = 39            # bound past the position: masked
+    return dict(kind="paged", q=q, k=pool_k, v=pool_v, qpos=qpos,
+                table=table, window=30, empty=())
+
+
+def _no_valid_key():
+    """Slots with no valid key at all, of three kinds, on a ring
+    (unbounded) cache: every row -1, a position of -1, and keys that all
+    lie past the query's position."""
+    rng = np.random.default_rng(10)
+    s = 96
+    q, k, v = _rand_qkv(rng, b=3, s=s, h=4, kh=1, dk=8)
+    qpos = [50, -1, 20]
+    kpos = np.tile(np.arange(s, dtype=np.int32), (3, 1))
+    kpos[0] = -1
+    kpos[2] += 21
+    return _dense(q, k, v, qpos, kpos, block_k=32, bounded=False,
+                  empty=(0, 1, 2))
+
+
 CASES = {
     **{f"causal_ragged_kh{kh}": (lambda kh=kh: _causal(kh))
        for kh in (4, 2, 1)},
@@ -135,6 +197,10 @@ CASES = {
     "dv_differs": _dv_differs,
     "paged": _paged,
     "paged_window_unbound": _paged_window_unbound,
+    "long_sparse": _long_sparse,
+    "window_inside_splits": _window_inside_splits,
+    "paged_gaps": _paged_gaps,
+    "no_valid_key": _no_valid_key,
 }
 
 
@@ -185,6 +251,9 @@ def oracle(case):
 
 MAIN_PATH = ("gemma3_1b_ring", "gemma3_1b_paged", "stablelm_dense",
              "stablelm_paged")
+# the timed large shape: 64 slots x 8192 cached tokens at stablelm width
+# (4.3 GB of bf16 K/V), made on the card by chip_smoke.py
+LARGE_SHAPE = dict(b=64, s=8192, kh=32, g=1, d=64, page_size=64)
 
 
 def main_path_cases(seed=0):

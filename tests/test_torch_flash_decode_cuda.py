@@ -1,5 +1,8 @@
 """The CUDA flash-decode kernels against their plain PyTorch versions, on
-the card.
+the card: every case in float32 (the split's edges included) and the
+serving main path's shapes in bf16, bit-identical over two calls, one
+launch and no host synchronisation a call, every cluster size from 1 to 16
+splits, and the large shape, which the plan does not split.
 
 Marked ``cuda``: they skip where no CUDA device is present. The file imports
 no jax, so it runs on a GPU machine without the JAX reference:
@@ -9,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _flash_decode_cases import (ATOL_BF16, ATOL_F32, CASES, MAIN_PATH,
-                                 main_path_cases, oracle)
+from _flash_decode_cases import (ATOL_BF16, ATOL_F32, CASES, LARGE_SHAPE,
+                                 MAIN_PATH, main_path_cases, oracle)
 from repro_torch.kernels import flash_decode as fd
 
 
@@ -97,3 +100,152 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
     k = torch.zeros(2, 32, 1, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fd.flash_decode(q, k, k, pos)
+
+
+def _inputs(case, device, dtype):
+    t = {n: torch.from_numpy(case[n]).to(device, dtype)
+         for n in ("q", "k", "v")}
+    t["qpos"] = torch.from_numpy(case["qpos"]).to(device)
+    idx = "table" if case["kind"] == "paged" else "kpos"
+    t[idx] = torch.from_numpy(case[idx]).to(device)
+    return t
+
+
+def _call(case, t):
+    if case["kind"] == "paged":
+        return fd.flash_decode_paged(t["q"], t["k"], t["v"], t["qpos"],
+                                     t["table"], window=case["window"])
+    return fd.flash_decode(t["q"], t["k"], t["v"], t["qpos"], t["kpos"],
+                           window=case["window"], bounded=case["bounded"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*MAIN_PATH, "long_sparse", "paged_gaps"])
+def test_kernel_bit_identical_over_two_calls(name, cuda_device):
+    """The splits merge in split order whatever order the blocks finish
+    in, so two calls give the same bits."""
+    if name in MAIN_PATH:
+        case, dtype = main_path_cases()[name], torch.bfloat16
+    else:
+        case, dtype = CASES[name](), torch.float32
+    t = _inputs(case, cuda_device, dtype)
+    first = _call(case, t)
+    second = _call(case, t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*MAIN_PATH, "no_valid_key"])
+def test_kernel_call_does_not_synchronise(name, cuda_device):
+    """The wrapper reads nothing back from the card: every call runs under
+    the sync debug mode "error"."""
+    if name in MAIN_PATH:
+        case, dtype = main_path_cases()[name], torch.bfloat16
+    else:
+        case, dtype = CASES[name](), torch.float32
+    t = _inputs(case, cuda_device, dtype)
+    fd._library()                       # the build may not run under it
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = launches(case)
+        _call(case, t)
+        _call(case, t)
+        assert launches(case) == before + 2
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("name", ["gemma3_1b_ring", "gemma3_1b_paged",
+                                  "window_inside_splits", "paged_gaps"])
+def test_every_cluster_size(name, n_split, cuda_device, monkeypatch):
+    """The plan forced to n_split blocks a cluster (above 8 the non-portable
+    size): the kernel still matches the plain version, and is bit-identical
+    over two calls."""
+    if name in MAIN_PATH:
+        case, dtype, tol = main_path_cases()[name], torch.bfloat16, ATOL_BF16
+    else:
+        case, dtype, tol = CASES[name](), torch.float32, ATOL_F32
+    monkeypatch.setattr(fd, "split_plan",
+                        lambda n_units, unit_rows, pairs, n_sm:
+                        fd.even_split(n_units, n_split))
+    t = _inputs(case, cuda_device, dtype)
+    got = _call(case, t)
+    assert torch.equal(got, _call(case, t))
+    f32 = {n: t[n].float() for n in ("q", "k", "v")}
+    plain_case = dict(case, **{n: f32[n].cpu().numpy() for n in f32})
+    want = run(plain_case, cuda_device, torch.float32, plain(case))
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MAIN_PATH)
+def test_last_plan_is_the_launched_one(name, cuda_device):
+    """The wrapper records the plan it gave the kernel: split_plan's choice
+    for the call's shapes and this card's SM count, and the grid of
+    (splits, KV heads, slots) blocks."""
+    case = main_path_cases()[name]
+    t = _inputs(case, cuda_device, torch.bfloat16)
+    _call(case, t)
+    b, kh = case["q"].shape[0], case["k"].shape[2]
+    if case["kind"] == "paged":
+        n_units, unit_rows = case["table"].shape[1], case["k"].shape[1]
+    else:
+        n_units, unit_rows = -(-case["k"].shape[1] // fd.TILE), fd.TILE
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n, per = fd.split_plan(n_units, unit_rows, b * kh, sms)
+    fn = fd.flash_decode_paged if case["kind"] == "paged" else fd.flash_decode
+    assert fn.last_plan == (n, per, (n, kh, b))
+
+
+def _large(kind, device):
+    """The large shape of chip_smoke.py's phase 9, every key valid."""
+    c = LARGE_SHAPE
+    gen = torch.Generator(device=device).manual_seed(11)
+    b, s, kh, d = c["b"], c["s"], c["kh"], c["d"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16)
+    t = {"q": randn(b, 1, kh * c["g"], d),
+         "qpos": torch.full((b,), s - 1, dtype=torch.int32, device=device)}
+    if kind == "paged":
+        ps = c["page_size"]
+        perm = torch.randperm(b * (s // ps), generator=gen,
+                              device=device) + 1
+        t |= {"k": randn(b * (s // ps) + 1, ps, kh, d),
+              "v": randn(b * (s // ps) + 1, ps, kh, d),
+              "table": perm.reshape(b, s // ps).to(torch.int32)}
+        return {"kind": "paged", "window": None}, t
+    t |= {"k": randn(b, s, kh, d), "v": randn(b, s, kh, d),
+          "kpos": torch.arange(s, dtype=torch.int32,
+                               device=device).expand(b, s).contiguous()}
+    return {"kind": "dense", "window": None, "bounded": True}, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_large_shape_is_not_split_and_reads_every_row(kind, cuda_device):
+    """64 slots x 32 KV heads fill the card: one block a (slot, KV head)
+    walks all 8192 rows, and the result is the plain version's."""
+    c = LARGE_SHAPE
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    unit = c["page_size"] if kind == "paged" else fd.TILE
+    assert fd.split_plan(c["s"] // unit, unit, c["b"] * c["kh"], sms) == (
+        1, c["s"] // unit)
+    case, t = _large(kind, cuda_device)
+    got = _call(case, t)
+    fn = fd.flash_decode_paged if kind == "paged" else fd.flash_decode
+    assert fn.last_plan == (1, c["s"] // unit, (1, c["kh"], c["b"]))
+    if kind == "paged":
+        want = fd.flash_decode_paged_ref(t["q"], t["k"], t["v"], t["qpos"],
+                                         t["table"])
+    else:
+        want = fd.flash_decode_ref(t["q"], t["k"], t["v"], t["qpos"],
+                                   t["kpos"])
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL_BF16,
+                               rtol=ATOL_BF16)
