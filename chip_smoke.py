@@ -43,25 +43,36 @@ bound. Phases:
    tokens each, every page returned, and exactly 22 dense and 4 paged kernel launches per step;
 11. exactness at full width in float32: dense chunked (the reference),
    dense flash and paged flash engines give the same greedy tokens;
-12. build of the SSD-scan kernel (started beside the others in phase 2);
-13. SSD-scan kernel against its plain version on the card: the cases of
-   tests/test_kernels.py (f32 atol 1e-4, bf16 5e-2), initial and final
-   states, ragged lengths, a chunk that overflows the unmasked exponent,
-   the training shape in bf16 against the plain version in float32 (5e-2)
-   and twice bit-identical, and the autograd function's gradients against
-   autograd through the plain version (1e-4);
+12. build of the SSD-scan kernels (started beside the others in phase 2);
+13. the SSD-scan kernels against their plain versions on the card. The
+   forward: the cases of tests/test_kernels.py (f32 atol 1e-4, bf16 5e-2),
+   initial and final states, ragged lengths, a chunk that overflows the
+   unmasked exponent, the training shape in bf16 against the plain version
+   in float32 (5e-2) and twice bit-identical. The backward kernel against
+   ``ssd_scan_bwd_plain``: the same cases in float32 (1e-4, against the
+   plain version in float64 on the same inputs; all outputs finite), with
+   either cotangent absent, the training shape in bf16 against the plain
+   version in float32 by relative norm error per output, and twice
+   bit-identical; the autograd function's gradients against autograd
+   through the plain version in float64 (1e-4), one backward launch each;
 14. SSD-scan timing at the training shape (8 x 2048, 24 heads of 64, N 128,
-   bf16): kernel, plain version and bound (no PyTorch call computes it);
+   bf16): forward and backward kernels, their plain versions and bounds
+   (no PyTorch call computes the scan), and each by kernel;
 15. the training main path: mamba2-130m at full width, bf16 params with an
    fp32 master, batch 8 x 2048, a ``TrainCampaign`` of 24 steps in 3 chunks
-   of 8 on a GPU worker of ``KsaCluster``: exactly 24 SSD launches per
-   step, finite losses, a checkpoint at step 24; step time, tokens/s,
-   checkpoint save and restore times and sizes, device busy share;
+   of 8 on a GPU worker of ``KsaCluster``: exactly 24 forward and 24
+   backward SSD launches per step, no call of a plain version on a CUDA
+   tensor, finite losses, a checkpoint at step 24; step time, tokens/s,
+   checkpoint save and restore times and sizes, device memory, device busy
+   share and device ms a step by kernel;
 16. recovery at full width: 8 steps in 2 chunks of 4 with the agent crashed
-   in chunk 2; the watchdog resubmits, and the step-8 checkpoint must equal
-   phase 15's bit for bit (else the ops that vary are named);
-17. one train step at full width cut to 2 layers in float32 on the card and
-   on the CPU: loss, grad norm and updated params agree;
+   in chunk 2; the watchdog resubmits; 24 forward and 24 backward SSD
+   launches for every step run and no plain-version call on a CUDA tensor;
+   the step-8 checkpoint must equal phase 15's bit for bit (else the ops
+   that vary are named);
+17. one train step at full width cut to 2 layers in float32 on the card
+   (through both SSD kernels) and on the CPU: loss, grad norm and updated
+   params agree;
 18. build of the flash-attention kernel (started beside the others in
    phase 2);
 19. the flash-attention kernels against their plain versions on the card:
@@ -105,6 +116,11 @@ the flash-decode wrappers of this checkout beside those of the checkout at
 DIR (the parent commit, unpacked with ``git archive``) in one process, host
 time a call in alternating pairs and device time at phase 9's shapes, and
 prints the readings as one JSON line, then the card's name and power limit.
+``python3 chip_smoke.py --train-against DIR`` likewise runs phase 15's
+mamba2-130m train step (full width, 8 x 2048 tokens, no campaign) of DIR
+and of this checkout, each in a process of its own, in the order DIR,
+this, this, DIR: the median step, tokens/s, device ms and kernels a step,
+and the device memory held and at peak.
 """
 from __future__ import annotations
 
@@ -822,6 +838,83 @@ def compare_against(other: Path, fd, build, fdc, smi: str) -> dict:
     return out
 
 
+TRAIN_AGAINST_STEPS = 12         # the first two warm up
+
+
+def train_step_reading(tree: Path) -> dict:
+    """The mamba2-130m train step at phase 15's width and batch, with the
+    ``repro_torch`` of the checkout at ``tree``: the median of
+    TRAIN_AGAINST_STEPS - 2 steps (host clock, synchronised), the device
+    memory held before them and the peak during them, then device ms and
+    kernels a step over PROFILE_TRAIN_STEPS steps (torch.profiler)."""
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    from repro_torch import configs, data
+    from repro_torch.train import step as step_mod
+    from repro_torch.train import trainer
+    cfg = configs.get_config(TRAIN_ARCH)
+    ocfg = trainer._ocfg_from_params({})
+    state = step_mod.init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = step_mod.make_train_step(cfg, ocfg)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+        cfg, 0, s, batch=TRAIN["batch"], seq=TRAIN["seq"]).items()}
+        for s in range(TRAIN_AGAINST_STEPS + PROFILE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for b in batches[:TRAIN_AGAINST_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for b in batches[TRAIN_AGAINST_STEPS:]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share = _device_share({"prof": prof, "wall": wall}, PROFILE_TRAIN_STEPS)
+    step_ms = statistics.median(times[2:]) * 1e3
+    return {"tree": str(tree), "step_ms": step_ms,
+            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] * 1e3 / step_ms,
+            "steps_ms": [round(t * 1e3, 2) for t in times],
+            "losses": losses[:3], "held_bytes": held, "peak_bytes": peak,
+            "device_ms_per_step": share.get("device_ms_per_step") or math.nan,
+            "kernels_per_step": share.get("kernels") or math.nan,
+            "top": [(n[:90], ms) for n, ms in share.get("top", [])]}
+
+
+def train_against(other: Path, smi: str) -> dict:
+    """The train step of this checkout beside that of the checkout at
+    ``other``, each in a process of its own (each imports its own
+    ``repro_torch`` and builds its own kernels), in the order other, this,
+    this, other on one card."""
+    out: dict = {"against": str(other), "card": smi, "readings": []}
+    for tree in (other, ROOT, ROOT, other):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--train-step", str(tree)],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"train step of {tree} failed:\n"
+                               f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["readings"].append(got)
+        log(f"  {'this' if tree == ROOT else 'other':<5} median step "
+            f"{got['step_ms']:.2f} ms, {got['tokens_per_s']:.0f} tokens/s, "
+            f"device {got['device_ms_per_step']:.2f} ms and "
+            f"{got['kernels_per_step']:.0f} kernels a step, memory held "
+            f"{got['held_bytes'] / 1e9:.3f} GB, peak "
+            f"{got['peak_bytes'] / 1e9:.3f} GB; first losses "
+            f"{[round(x, 6) for x in got['losses']]}")
+    return out
+
+
 def _texts(n: int, seed: int) -> list[dict]:
     """Request texts of 540-700 characters: words over a small alphabet."""
     rng = np.random.RandomState(seed)
@@ -918,11 +1011,12 @@ def _device_share(trace: dict, steps: int = PROFILE_STEPS) -> dict | None:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     wall_us = trace["wall"] * 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"busy": busy / wall_us, "device_ms_per_step":
             busy / 1e3 / steps, "wall_ms_per_step":
             wall_us / 1e3 / steps, "kernels": len(spans) /
-            steps, "top": [(n, v / 1e3 / steps) for n, v in top]}
+            steps, "top": [(n, v / 1e3 / steps) for n, v in ranked[:8]],
+            "by_kernel": [(n, v / 1e3 / steps) for n, v in ranked]}
 
 
 def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
@@ -992,6 +1086,11 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
             f"kernel:")
         for name, ms in share["top"]:
             log(f"    {ms:8.4f}  {name[:90]}")
+        mine = [(re.search(r"\w+_kernel", n).group(0), ms)
+                for n, ms in share["by_kernel"]
+                if re.search(r"(ssd|flash)_\w+_kernel", n)]
+        log("  the port's kernels, device ms a step: " + (", ".join(
+            f"{n} {ms:.4f}" for n, ms in mine) or "none recorded"))
     return {"makespan_s": res.elapsed_s, "tokens": tokens,
             "tokens_per_s": tokens / res.elapsed_s, "steps": steps,
             "step_ms": step_ms, "device": share,
@@ -1165,20 +1264,27 @@ def phase_ssd_check(ssd, sc) -> dict:
         wy = torch.randn(args[0].shape, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
         leaves = [*args] + ([h0] if h0 is not None else [])
+        # the reference in float64 on the same inputs (see _ssd_bwd_f64)
+        leaves64 = [t.detach().double().requires_grad_(True) for t in leaves]
 
-        def grads(fn):
-            y, h = fn(*args, chunk=case["chunk"], h0=h0)
+        def grads(fn, ins):
+            y, h = fn(*ins[:5], chunk=case["chunk"],
+                      h0=ins[5] if h0 is not None else None)
             return torch.autograd.grad((y * wy).sum() + h.square().sum(),
-                                       leaves)
-        got, want = grads(ssd.ssd_scan), grads(ssd.ssd_scan_plain)
+                                       ins)
+        before = ssd.ssd_scan.bwd_launches
+        got = grads(ssd.ssd_scan, leaves)
+        assert ssd.ssd_scan.bwd_launches == before + 1
+        want = grads(ssd.ssd_scan_plain, leaves64)
         gerr = 0.0
         for g, w in zip(got, want):
             assert bool(torch.isfinite(g).all()), name
-            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(g.double(), w, atol=1e-4, rtol=1e-4)
             gerr = max(gerr, float((g - w).abs().max()))
         log(f"  SSDScanFn gradients, {name:<11}: x, dt, a, B, C"
-            f"{', h0' if h0 is not None else ''} finite, "
-            f"max |autograd(kernel) - autograd(plain)| {gerr:.3g}  ok")
+            f"{', h0' if h0 is not None else ''} finite, one backward "
+            f"launch, max |autograd(kernel) - autograd(plain f64)| "
+            f"{gerr:.3g}  ok")
 
     t = ssd_main_inputs()
     args = [t[k] for k in ("x", "dt", "a", "b", "c")]
@@ -1208,6 +1314,87 @@ def phase_ssd_check(ssd, sc) -> dict:
     return {"max_abs_err": max(err, main_err), "main_err": main_err}
 
 
+SSD_BWD_OUTS = ("dx", "ddt", "da", "dB", "dC", "dh0")
+
+
+def _ssd_bwd_f64(ssd, args, gy, gh, chunk, h0):
+    """ssd_scan_bwd_plain in float64 on the same float32 inputs. The
+    reference is float64: where |cum| is large (up to 466 on the
+    overflowing chunk, an ulp of 3e-5) the plain version's own float32
+    exponents are off by the order of the 1e-4 tolerance, and its float32
+    gradient differs from the kernel's by up to twice that."""
+    def f64(t):
+        return None if t is None else t.double()
+    return ssd.ssd_scan_bwd_plain(*map(f64, args), f64(gy), f64(gh),
+                                  chunk=chunk, h0=f64(h0))
+
+
+def _cotangents(y, h, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype),
+            torch.randn(h.shape, generator=gen, device="cuda"))
+
+
+def phase_ssd_bwd_check(ssd, sc) -> dict:
+    """The backward kernel against ssd_scan_bwd_plain: every case of the
+    forward's in float32 (against the plain version in float64, 1e-4), one
+    cotangent absent, the training shape in bf16 against the plain version
+    in float32 by relative norm error, and determinism."""
+    cases = {**sc.state_cases(), **{str(shape): sc.kernel_case(*shape)
+                                    for shape in sc.KERNEL_SHAPES}}
+    err = 0.0
+    for name, case in cases.items():
+        args, h0 = _ssd_args(case)
+        y, h = ssd.ssd_scan(*args, chunk=case["chunk"], h0=h0)
+        gy, gh = _cotangents(y, h)
+        runs = [(gy, gh, "")] + ([(gy, None, " gy only"),
+                                  (None, gh, " g_hfin only")]
+                                 if name == "ragged_100" else [])
+        for g_y, g_h, label in runs:
+            got = ssd.ssd_scan_bwd(*args, g_y, g_h, h0=h0)
+            torch.cuda.synchronize()
+            want = _ssd_bwd_f64(ssd, args, g_y, g_h, case["chunk"], h0)
+            worst = []
+            for out, g, w in zip(SSD_BWD_OUTS, got, want):
+                if g is None:
+                    assert h0 is None and out == "dh0"
+                    continue
+                assert bool(torch.isfinite(g).all()), (name, out)
+                torch.testing.assert_close(g.double(), w, atol=SSD_ATOL_F32,
+                                           rtol=SSD_ATOL_F32, msg=out)
+                e = float((g.double() - w).abs().max())
+                err = max(err, e)
+                worst.append(f"{out} {e:.2g}")
+            log(f"  backward {name + label:<30} f32: max |kernel - plain "
+                f"f64| " + ", ".join(worst) + "; finite  ok")
+
+    t = ssd_main_inputs(seed=2)
+    args = [t[k] for k in ("x", "dt", "a", "b", "c")]
+    y, h = ssd.ssd_scan(*args, chunk=t["chunk"])
+    gy, _ = _cotangents(y, h)
+    # the training path's cotangents: gy, and none for the final state
+    got = ssd.ssd_scan_bwd(*args, gy, None)
+    again = ssd.ssd_scan_bwd(*args, gy, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])), \
+        "backward kernel not deterministic"
+    del again
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    want = ssd.ssd_scan_bwd_plain(*f32, gy.float(), None, chunk=t["chunk"])
+    rel = {}
+    for out, g, w in zip(SSD_BWD_OUTS[:5], got, want):
+        assert bool(torch.isfinite(g).all()), out
+        rel[out] = float((g.float() - w).norm() / w.norm())
+    log(f"  backward main shape {tuple(t['x'].shape)} bf16 (gy only, as in "
+        f"training): ||kernel - plain fp32|| / ||plain fp32|| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (limit {sc.BWD_REL_BF16}); two runs bit-identical")
+    assert all(v <= sc.BWD_REL_BF16 for v in rel.values()), rel
+    del got, want, f32, t, args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "main_rel": rel}
+
+
 def ssd_bound(x, b) -> tuple[float, str, dict]:
     """Least time for one ssd_scan at these shapes: each input read once
     (x, dt, a, B, C), y and the final state written once, at 3.35 TB/s;
@@ -1233,14 +1420,47 @@ def ssd_bound(x, b) -> tuple[float, str, dict]:
                                      "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
+def ssd_bwd_bound(x, b) -> tuple[float, str, dict]:
+    """Least time for one backward at these shapes with the training path's
+    cotangents (gy; none for the final state): x, gy, dt, a, B and C read
+    once, dx, ddt, da, dB and dC written once, at 3.35 TB/s; against the
+    operations at the model's chunk (256): C.B^T and the two dCB products
+    per (batch row, chunk) on the lower triangle; per head dM = gY.X^T and
+    M^T.gY on the lower triangle, the chunk state and its adjoint, gY.hz,
+    B.Dn^T and X.Dn, and the two passes over the state, at the bf16
+    tensor-core rate."""
+    bb, s, h, p = x.shape
+    n = b.shape[-1]
+    e = x.element_size()
+    nbytes = (3 * bb * s * h * p * e + 2 * bb * s * h * 4 + 2 * h * 4
+              + 4 * bb * s * n * e)
+    c = 256
+    nc = -(-s // c)
+    tri = c * (c + 1) // 2
+    ops = (bb * nc * 3 * tri * n * 2
+           + bb * h * nc * (2 * tri * p * 2 + 5 * c * n * p * 2
+                            + 2 * p * n * 2))
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / BF16_FLOP_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, {"bytes": nbytes, "ops": ops,
+                                     "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def _by_kernel(parts: dict) -> str:
+    return ", ".join(f"{n} {t:.4f} ms" for n, t in parts.items()) or \
+        "no device activity recorded"
+
+
 def phase_ssd_timing(ssd) -> dict:
     t = ssd_main_inputs(seed=1)
     args = [t[k] for k in ("x", "dt", "a", "b", "c")]
     ms = _median_flushed(lambda: ssd.ssd_scan(*args, chunk=t["chunk"]), 20)
     plain_ms = _median_flushed(
         lambda: ssd.ssd_scan_plain(*args, chunk=t["chunk"]), 5, warmup=1)
+    parts_ms = _kernel_ms(lambda: ssd.ssd_scan(*args, chunk=t["chunk"]))
     bound_ms, bound_by, parts = ssd_bound(t["x"], t["b"])
-    log(f"  kernel {tuple(t['x'].shape)} N={t['b'].shape[-1]} bf16: median "
+    log(f"  forward {tuple(t['x'].shape)} N={t['b'].shape[-1]} bf16: median "
         f"{ms:.4f} ms over 20 (L2 flushed); plain (chunk 256) {plain_ms:.3f} "
         f"ms over 5; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{parts['bytes'] / 1e6:.1f} MB -> {parts['bytes_ms']:.4f} ms, "
@@ -1248,11 +1468,35 @@ def phase_ssd_timing(ssd) -> dict:
         f"bf16 rate); {bound_ms / ms:.2%} of the bound, "
         f"{parts['ops'] / ms / 1e9:.1f} TFLOP/s, "
         f"{parts['bytes'] / ms / 1e6:.0f} GB/s; no PyTorch call computes "
-        f"this scan (library_ms null)")
-    del t, args
+        f"this scan (library_ms null); one call by kernel (torch.profiler, "
+        f"mean of 20 calls, L2 warm): {_by_kernel(parts_ms)}")
+    y, _ = ssd.ssd_scan(*args, chunk=t["chunk"])
+    gy = torch.randn(y.shape, generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda").to(y.dtype)
+    del y
+    bwd_ms = _median_flushed(lambda: ssd.ssd_scan_bwd(*args, gy, None), 20)
+    bwd_plain_ms = _median_flushed(
+        lambda: ssd.ssd_scan_bwd_plain(*args, gy, None, chunk=t["chunk"]),
+        3, warmup=1)
+    bwd_parts_ms = _kernel_ms(lambda: ssd.ssd_scan_bwd(*args, gy, None))
+    bwd_bound_ms, bwd_by, bparts = ssd_bwd_bound(t["x"], t["b"])
+    log(f"  backward (gy; no final-state cotangent, as in training): median "
+        f"{bwd_ms:.4f} ms over 20 (L2 flushed); plain (chunk 256) "
+        f"{bwd_plain_ms:.3f} ms over 3; bound {bwd_bound_ms:.4f} ms "
+        f"({bwd_by}: {bparts['bytes'] / 1e6:.1f} MB -> "
+        f"{bparts['bytes_ms']:.4f} ms, {bparts['ops'] / 1e9:.2f} GFLOP -> "
+        f"{bparts['ops_ms']:.4f} ms); {bwd_bound_ms / bwd_ms:.2%} of the "
+        f"bound, {bparts['ops'] / bwd_ms / 1e9:.1f} TFLOP/s; one call by "
+        f"kernel: {_by_kernel(bwd_parts_ms)}")
+    del t, args, gy
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": parts["bytes"], "ops": parts["ops"]}
+            "bound_by": bound_by, "bytes": parts["bytes"], "ops": parts["ops"],
+            "by_kernel": parts_ms, "bwd": {
+                "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                "bound_ms": bwd_bound_ms, "bound_by": bwd_by,
+                "bytes": bparts["bytes"], "ops": bparts["ops"],
+                "by_kernel": bwd_parts_ms}}
 
 
 def _ckpt_bytes(path: str) -> int:
@@ -1484,6 +1728,11 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
             f"kernel:")
         for name, ms in share["top"]:
             log(f"    {ms:8.4f}  {name[:90]}")
+        mine = [(re.search(r"\w+_kernel", n).group(0), ms)
+                for n, ms in share["by_kernel"]
+                if re.search(r"(ssd|flash)_\w+_kernel", n)]
+        log("  the port's kernels, device ms a step: " + (", ".join(
+            f"{n} {ms:.4f}" for n, ms in mine) or "none recorded"))
     return {"launches": launches, "losses": losses, "makespan_s": makespan,
             "step_ms": step_ms, "device": share, "saves": list(record["saves"]),
             "restores": list(record["restores"]), "peak_bytes": peak,
@@ -1491,11 +1740,18 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
 
 
 def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
-                   workdir: Path) -> dict:
+                   workdir: Path, counted: dict, record: dict,
+                   plain_watch) -> dict:
     """8 steps in 2 chunks of 4 with the agent crashed in chunk 2; the
     monitor's watchdog resubmits; the step-8 checkpoint must equal the
-    uninterrupted run's, leaf by leaf."""
-    with _gpu_cluster(KsaCluster) as c:
+    uninterrupted run's, leaf by leaf. ``counted`` as in phase_training:
+    every step run (the crashed chunk's too; a step is never cut, the
+    agent stops between steps) launches each kernel as often as given."""
+    for k in record:
+        record[k].clear()
+    for fn, attr, _ in counted.values():
+        setattr(fn, attr, 0)
+    with _gpu_cluster(KsaCluster) as c, plain_watch as plain_calls:
         a1 = _gpu_worker(c, ResourceProfile, RECOVERY)
         camp = _campaign(trainer, c, workdir / "run2", RECOVERY)
         box: dict = {}
@@ -1523,6 +1779,17 @@ def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
     out = box["out"]
     assert out["final_step"] == RECOVERY["total_steps"], out
     assert resub >= 1, resub
+    ran = len(record["steps"])
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr, _) in counted.items()}
+    for name, (_, _, per_step) in counted.items():
+        assert launches[name] == per_step * ran, \
+            f"{launches[name]} {name} launches, expected {per_step} x {ran}"
+    assert not plain_calls, f"plain versions ran on the card: {plain_calls}"
+    log(f"  {ran} steps run (the crashed chunk's included); launches: "
+        + ", ".join(f"{name} {launches[name]} = {per} x {ran}"
+                    for name, (_, _, per) in counted.items())
+        + "; no plain-version call on a CUDA tensor  ok")
     log(f"  agent crashed in chunk 2 ({tid}) {t_crash - t0:.1f} s in; "
         f"{resub} resubmission(s); campaign done in "
         f"{time.perf_counter() - t0:.2f} s, final loss "
@@ -1593,15 +1860,17 @@ def _name_nondeterministic_ops() -> None:
     xs = [t[k].detach().requires_grad_(True) for k in ("x", "dt", "a", "b", "c")]
     probes["ssd_scan forward (the CUDA kernel)"] = \
         lambda: ssd.ssd_scan(*[v.detach() for v in xs], chunk=256)[0].float()
-    probes["SSDScanFn backward (plain recompute)"] = lambda: torch.autograd.grad(
+    probes["SSDScanFn backward (the CUDA kernel)"] = lambda: torch.autograd.grad(
         ssd.ssd_scan(*xs, chunk=256)[0].float().square().mean(), xs[0])[0].float()
     for name, fn in probes.items():
         log(f"    run-to-run max |difference| of {name}: {runs(fn):.3g}")
 
 
-def phase_train_exactness(train_step_mod, configs, optim, tree) -> dict:
+def phase_train_exactness(ssd, train_step_mod, configs, optim,
+                          tree) -> dict:
     """The same weights at full width cut to 2 layers, float32, one train
-    step of batch 2 x 512 on the card and on the CPU (TF32 off)."""
+    step of batch 2 x 512 on the card (through the forward and backward
+    kernels of both layers) and on the CPU (TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_config(TRAIN_ARCH).with_(n_layers=2, dtype="float32")
@@ -1618,10 +1887,13 @@ def phase_train_exactness(train_step_mod, configs, optim, tree) -> dict:
              "labels": torch.from_numpy(tok[:, 1:].astype(np.int32))}
     step = train_step_mod.make_train_step(cfg, ocfg)
     on_card = tree.tree_map(lambda t: t.cuda(), state)
+    before = ssd.ssd_scan.launches, ssd.ssd_scan.bwd_launches
     t0 = time.perf_counter()
     got, gm = step(on_card, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan.bwd_launches) == \
+        (before[0] + 2, before[1] + 2), "the card's step skipped a kernel"
     t0 = time.perf_counter()
     want, wm = step(state, batch)
     t_cpu = time.perf_counter() - t0
@@ -1639,7 +1911,8 @@ def phase_train_exactness(train_step_mod, configs, optim, tree) -> dict:
         f"{float(gm['loss']):.6f} CPU {float(wm['loss']):.6f} (|diff| "
         f"{loss_err:.3g}, limit 1e-5 relative); grad norm |diff| {gn_err:.3g}"
         f" (limit 1e-4 relative); updated params max |card - CPU| "
-        f"{worst:.3g} at {where} (limit 1e-5); step {t_card:.2f} s card, "
+        f"{worst:.3g} at {where} (limit 1e-5); 2 forward and 2 backward "
+        f"SSD launches on the card; step {t_card:.2f} s card, "
         f"{t_cpu:.2f} s CPU  ok")
     return {"loss_err": loss_err, "param_err": worst}
 
@@ -1676,16 +1949,16 @@ FA_TIMED = ("gemma3_1b_global", "gemma3_1b_local", "stablelm_1_6b")
 
 FA_PLAIN = ("flash_attention_plain", "flash_attention_lse_plain",
             "flash_attention_bwd_plain")
+SSD_PLAIN = ("ssd_scan_plain", "ssd_scan_bwd_plain")
 
 
 @contextlib.contextmanager
-def plain_calls_on_card(fa, attention_mod):
-    """Counts, by name, the calls of the flash-attention plain versions and
-    of the model's chunked_attention (the plain forward) made with a CUDA
-    tensor while the block runs."""
+def plain_calls_on_card(targets):
+    """Counts, by name, the calls of the functions ``targets`` names (pairs
+    of a module and a name: the kernels' plain versions, and the model's
+    chunked_attention, the plain attention forward) made with a CUDA tensor
+    while the block runs."""
     seen: dict = {}
-    targets = [(fa, n) for n in FA_PLAIN] + [(attention_mod,
-                                              "chunked_attention")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def counting(name, fn):
@@ -2009,9 +2282,9 @@ def _sdpa_backend(call, backward=False) -> str:
 
 def _kernel_ms(call, runs: int = 20) -> dict:
     """Device ms of one run of ``call`` by kernel (torch.profiler): each
-    kernel's mean over the launches recorded in ``runs`` runs (each runs
-    once a call), the names cut to the kernel's own; empty when the
-    profiler records no device activity."""
+    kernel's total over ``runs`` runs over ``runs`` (a kernel launched
+    twice a run counts both), the names cut to the kernel's own; empty
+    when the profiler records no device activity."""
     call()
     torch.cuda.synchronize()
     prof = torch.profiler.profile(
@@ -2024,12 +2297,12 @@ def _kernel_ms(call, runs: int = 20) -> dict:
     total: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            found = re.search(r"flash_\w+_kernel", e.name)
+            found = re.search(r"\w+_kernel", e.name)
             name = found.group(0) if found else e.name[:60]
             t, n = total.get(name, (0.0, 0))
             total[name] = (t + (e.time_range.end - e.time_range.start) / 1e3,
                            n + 1)
-    return {name: t / n for name, (t, n) in total.items()}
+    return {name: t / runs for name, (t, _) in total.items()}
 
 
 def phase_fa_timing(fa, fc) -> dict:
@@ -2178,8 +2451,20 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch next to {Path(__file__).name}; "
               f"run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-step"] and len(sys.argv) == 3:
+        torch.cuda.set_device(0)
+        print(json.dumps(train_step_reading(Path(sys.argv[2]))), flush=True)
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
+    if sys.argv[1:2] == ["--train-against"] and len(sys.argv) == 3:
+        torch.cuda.set_device(0)
+        smi = nvidia_smi()
+        log(f"== the {TRAIN_ARCH} train step: other, this, this, other "
+            f"({smi})")
+        print(json.dumps(train_against(Path(sys.argv[2]), smi)))
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
         import _flash_decode_cases as fdc
         from repro_torch.kernels import build
@@ -2191,8 +2476,8 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     if sys.argv[1:]:
-        print(f"usage: {Path(__file__).name} [--against CHECKOUT]",
-              file=sys.stderr)
+        print(f"usage: {Path(__file__).name} [--against CHECKOUT | "
+              f"--train-against CHECKOUT]", file=sys.stderr)
         return 2
     import _flash_attention_cases as fc
     import _flash_decode_cases as fdc
@@ -2247,33 +2532,39 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
-    log("== 12. build of the SSD-scan kernel")
+    log("== 12. build of the SSD-scan kernels")
     phase_ssd_build(ssd, pending["ssd"])
-    log("== 13. SSD-scan kernel against its plain version on the card")
+    log("== 13. SSD-scan kernels against their plain versions on the card")
     ssd_err = phase_ssd_check(ssd, sc)
+    ssd_bwd_err = phase_ssd_bwd_check(ssd, sc)
     log("== 14. SSD-scan timing at the training shape (median, CUDA events, "
         "L2 flushed)")
     ssd_time = phase_ssd_timing(ssd)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
     record = _instrument_training(trainer, checkpoint)
+    n_ssd = configs.get_config(TRAIN_ARCH).layer_kinds().count("ssd")
+    ssd_counted = {"ssd_scan": (ssd.ssd_scan, "launches", n_ssd),
+                   "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", n_ssd)}
+    plain_targets = ([(fa, n) for n in FA_PLAIN] + [(ssd, n) for n in SSD_PLAIN]
+                     + [(attention_mod, "chunked_attention")])
     try:
         log(f"== 15. training main path: TrainCampaign on KsaCluster, "
             f"{TRAIN_ARCH} at full width, {TRAIN['total_steps']} steps")
         trained = phase_training(
-            TRAIN, {"ssd_scan": (ssd.ssd_scan, "launches",
-                                 configs.get_config(TRAIN_ARCH)
-                                 .layer_kinds().count("ssd")),
+            TRAIN, {**ssd_counted,
                     "flash_attention": (fa.flash_attention, "launches", 0)},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
-            ResourceProfile, record, workdir / "run1")
+            ResourceProfile, record, workdir / "run1",
+            plain_watch=plain_calls_on_card(plain_targets))
         log("== 16. recovery at full width: an agent crashed mid-chunk")
         recovered = phase_recovery(trainer, checkpoint, KsaCluster,
-                                   ResourceProfile, workdir)
+                                   ResourceProfile, workdir, ssd_counted,
+                                   record, plain_calls_on_card(plain_targets))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log("== 17. one train step on the card and on the CPU, float32")
-    phase_train_exactness(train_step_mod, configs, optim, tree)
+    phase_train_exactness(ssd, train_step_mod, configs, optim, tree)
     torch.cuda.empty_cache()
     t_attn = time.perf_counter()
     log("== 18. build of the flash-attention kernel")
@@ -2292,10 +2583,11 @@ def main() -> int:
                                              layers),
                          "flash_attention_bwd": (fa.flash_attention,
                                                  "bwd_launches", layers),
-                         "ssd_scan": (ssd.ssd_scan, "launches", 0)},
+                         "ssd_scan": (ssd.ssd_scan, "launches", 0),
+                         "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", 0)},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
             ResourceProfile, record, workdir / "attn",
-            plain_watch=plain_calls_on_card(fa, attention_mod))
+            plain_watch=plain_calls_on_card(plain_targets))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2369,8 +2661,31 @@ def main() -> int:
         "shape": dict(sc.MAIN_SHAPE, dtype="bfloat16"),
         "launches_per_step": (trained["launches"]["ssd_scan"]
                               // TRAIN["total_steps"]),
+        "by_kernel": ssd_time["by_kernel"],
         "train_step_ms": trained["step_ms"],
         "recovery_bitwise": recovered["bitwise"],
+        "check": "pass",
+    })
+    ssd_bwd = ssd_time["bwd"]
+    kernels.append({
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:74 (its gradient: the JAX "
+                    "package differentiates ssd_chunked and has no Pallas "
+                    "backward)",
+        "launches": trained["launches"]["ssd_scan_bwd"],
+        "max_abs_err": ssd_bwd_err["max_abs_err"],
+        "ms": ssd_bwd["ms"],
+        "plain_ms": ssd_bwd["plain_ms"],
+        "bound_ms": ssd_bwd["bound_ms"],
+        "bound_by": ssd_bwd["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes the gradient
+        "shape": dict(sc.MAIN_SHAPE, dtype="bfloat16"),
+        "main_rel_err": ssd_bwd_err["main_rel"],
+        "by_kernel": ssd_bwd["by_kernel"],
+        "launches_per_step": (trained["launches"]["ssd_scan_bwd"]
+                              // TRAIN["total_steps"]),
         "check": "pass",
     })
     main_fa = fa_time["gemma3_1b_global"]

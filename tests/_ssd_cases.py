@@ -5,7 +5,7 @@ so the card tests and the smoke script run where jax is absent.
 A case is a dict of numpy arrays ``x`` (B, S, H, P), ``dt`` (B, S, H)
 (post-softplus, >= 0), ``a`` (H,) (negative), ``b`` and ``c`` (B, S, N), and
 ``h0`` (B, H, P, N) or None, with ``chunk`` (the model's chunk; the CUDA
-kernel's own is 32 steps).
+kernels' own is 64 steps).
 """
 import numpy as np
 
@@ -17,6 +17,14 @@ KERNEL_SHAPES = [(256, 2, 32, 16, 64), (128, 4, 64, 128, 32),
 
 # mamba2-130m's training shape: batch 8 x 2048 tokens, 24 heads of 64, N 128
 MAIN_SHAPE = dict(b=8, s=2048, h=24, p=64, n=128, chunk=256)
+
+# the backward kernel in bf16 against its plain version in float32 on the
+# same bf16 inputs, per output: ||kernel - plain|| / ||plain||. Rounding
+# dx, dB and dC to bf16 alone costs about 1e-3 (half an ulp at 2^-8,
+# spread evenly), and the kernel rounds the operands it computes (M, the
+# summed dCB, the states and adjoints) to bf16 for the tensor cores, each
+# another term of that order
+BWD_REL_BF16 = 1e-2
 
 
 def kernel_case(s, h, p, n, chunk):
@@ -56,6 +64,9 @@ def state_cases():
         "overflow": random_case(5, 1, 64, 2, 16, 8, 64, dt_scale=2.0,
                                 a_scale=4.0),
         "width": random_case(6, 2, 80, 3, 64, 128, 64, h0=True),
+        # widths that are not multiples of 8: the kernels' element-wise
+        # loads and their one-entry-a-thread pass over the state
+        "odd_width": random_case(7, 2, 70, 2, 10, 6, 32, h0=True),
     }
 
 

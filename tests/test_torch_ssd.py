@@ -11,6 +11,12 @@ on the CPU.
   exponent overflows the reference's gradient is NaN while the port's is
   finite and agrees with a float64 central difference.
 * On a CPU tensor the wrapper takes the plain version and launches nothing.
+* ``ssd_scan_bwd_plain``, the backward kernel's plain version (explicit
+  formulas), equals ``jax.grad`` of ``ssd_chunked`` wherever the reference
+  is finite (1e-4), and autograd through ``ssd_scan_plain`` on every state
+  case (the overflowing chunk included) and every kernel case, in float64
+  (1e-10: the same function, rounding only) and float32 (1e-4), also with
+  either cotangent absent.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +29,8 @@ from _ssd_cases import (ATOL_BF16, ATOL_F32, KERNEL_SHAPES, kernel_case,
 from repro.kernels.ssd import ssd_scan as jax_ssd_scan
 from repro.models.ssd import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ssd
-from repro_torch.kernels.ssd import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd import (ssd_scan, ssd_scan_bwd,
+                                     ssd_scan_bwd_plain, ssd_scan_plain)
 
 NAMES = ("x", "dt", "a", "b", "c")
 
@@ -170,3 +177,80 @@ def test_wrapper_checks_shapes():
     with pytest.raises(ValueError):
         ssd_scan(*tin, h0=torch.zeros(1, 1, 1, 1))
     assert ssd.MAX_P >= 64 and ssd.MAX_N >= 128    # mamba2-130m's widths
+
+
+# every case the backward's plain version is held to autograd on
+BWD_CASES = {**{name: case for name, case in state_cases().items()},
+             **{str(shape): kernel_case(*shape) for shape in KERNEL_SHAPES}}
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_bwd_plain_matches_jax_grad(name):
+    case = state_cases()[name]
+    assert unmasked_exponent_max(case) < 80       # the reference is finite
+    want, wy, wh = _jax_grads(case)
+    tin, th0 = _torch(case)
+    h0 = th0 if th0 is not None else torch.zeros(wh.shape)
+    got = ssd_scan_bwd_plain(*tin, torch.from_numpy(wy),
+                             torch.from_numpy(wh), chunk=case["chunk"], h0=h0)
+    for arg, w, g in zip(NAMES + ("h0",), want, got):
+        w = np.asarray(w)
+        assert np.isfinite(w).all(), arg
+        assert g.dtype == torch.float32, arg
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=arg)
+
+
+def _autograd_and_formula(case, dtype, use_gy=True, use_gh=True):
+    """(autograd through ssd_scan_plain, ssd_scan_bwd_plain) for the
+    cotangents drawn from a seed, each optional."""
+    tin, th0 = _torch(case)
+    tin = [t.detach().to(dtype).requires_grad_(True) for t in tin]
+    b, _, h, p = case["x"].shape
+    n = case["b"].shape[2]
+    h0 = (torch.zeros((b, h, p, n)) if th0 is None else th0.detach())
+    h0 = h0.to(dtype).requires_grad_(True)
+    y, hf = ssd_scan_plain(*tin, chunk=case["chunk"], h0=h0)
+    rng = np.random.RandomState(12)
+    gy = torch.from_numpy(rng.randn(*y.shape)).to(dtype) if use_gy else None
+    gh = torch.from_numpy(rng.randn(*hf.shape)).to(dtype) if use_gh else None
+    pairs = [(o, g) for o, g in ((y, gy), (hf, gh)) if g is not None]
+    want = torch.autograd.grad([o for o, _ in pairs], [*tin, h0],
+                               [g for _, g in pairs], allow_unused=True)
+    want = [torch.zeros_like(t) if w is None else w
+            for w, t in zip(want, [*tin, h0])]
+    got = ssd_scan_bwd_plain(*[t.detach() for t in tin], gy, gh,
+                             chunk=case["chunk"], h0=h0.detach())
+    return want, got
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_bwd_plain_matches_autograd(name, dtype, tol):
+    case = BWD_CASES[name]
+    want, got = _autograd_and_formula(case, dtype)
+    for arg, w, g in zip(NAMES + ("h0",), want, got):
+        assert bool(torch.isfinite(g).all()), arg
+        assert g.dtype == w.dtype and g.shape == w.shape, arg
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol, msg=arg)
+
+
+@pytest.mark.parametrize("present", ["gy", "g_hfin"])
+@pytest.mark.parametrize("name", ["h0", "ragged_100"])
+def test_bwd_plain_with_one_cotangent(name, present):
+    want, got = _autograd_and_formula(state_cases()[name], torch.float64,
+                                      use_gy=present == "gy",
+                                      use_gh=present == "g_hfin")
+    for arg, w, g in zip(NAMES + ("h0",), want, got):
+        torch.testing.assert_close(g, w, atol=1e-10, rtol=1e-10, msg=arg)
+
+
+def test_bwd_kernel_wrapper_needs_cuda():
+    case = state_cases()["h0"]
+    tin, th0 = _torch(case)
+    before = ssd_scan.bwd_launches
+    with pytest.raises(ValueError):
+        ssd_scan_bwd(*tin, torch.zeros(case["x"].shape), None, h0=th0)
+    assert ssd_scan.bwd_launches == before
