@@ -15,12 +15,20 @@ bound. Phases:
 3. kernel against plain on the card, atol 6e-4 / rtol 1e-3 (the tolerance
    of tests/test_kernels.py) element by element, and within 2e-4 of the
    plain version in float64 in the Frobenius norm relative to its map's;
-   the kernel's map exactly symmetric; then the screen and the localization
+   the kernel's map exactly symmetric; the fused entry point's map equal to
+   the kernel's and its sums (total writhe and ACN) within 3e-4 of the plain
+   version's in float64, relative to the ACN, and within 1e-5 of its own
+   map summed in float64; then the screen and the localization
    on the card against the same on the CPU, each knotted structure's total
    writhe within a relative 3e-4 of the plain version's in float64;
-4. timing at B=4000, n=512: kernel, plain version (in the largest chunks
-   that fit, each chunk checked against the kernel) and the bound;
-5. a breakdown of one batch's host and device work;
+4. timing at B=4000, n=512: the map kernel, the fused map and sums
+   (``writhe_and_acn``), the map kernel followed by the sums in PyTorch
+   (the screen's composition before the sums were fused), the plain version
+   (in the largest chunks that fit, each chunk checked against the kernel)
+   and the bound; the fused entry point's map there equal to the kernel's,
+   its sums held as in phase 3, chunk by chunk;
+5. a breakdown of one batch's host and device work, and the peak device
+   memory of ``writhe_and_acn`` beside that of the composition;
 6. the main path: an 8000-structure campaign (two screen tasks of 4000),
    then the flat ``knot_batch`` baseline on the same ids; their knotted
    sets and knot cores must be equal, and the kernel must have run;
@@ -112,10 +120,13 @@ repository's sources are missing, or when any phase fails.
 Run from the root of a checkout:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --against DIR`` runs none of the phases: it sets
-the flash-decode wrappers of this checkout beside those of the checkout at
-DIR (the parent commit, unpacked with ``git archive``) in one process, host
-time a call in alternating pairs and device time at phase 9's shapes, and
-prints the readings as one JSON line, then the card's name and power limit.
+the writhe map and ``writhe_and_acn`` (DIR's: its map kernel, then the sums
+in PyTorch) and the flash-decode wrappers of this checkout beside those of
+the checkout at DIR (the parent commit, unpacked with ``git archive``) in
+one process: the writhe calls' device time at phase 4's shape in
+alternating pairs, the decode wrappers' host time a call in alternating
+pairs and device time at phase 9's shapes. It prints the readings as one
+JSON line, then the card's name and power limit.
 ``python3 chip_smoke.py --train-against DIR`` likewise runs phase 15's
 mamba2-130m train step (full width, 8 x 2048 tokens, no campaign) of DIR
 and of this checkout, each in a process of its own, in the order DIR,
@@ -160,11 +171,13 @@ B_FULL, N_POINTS = 4000, 512       # the paper's batch; backbone length
 CAMPAIGN = 8000                    # two screen tasks of B_FULL
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and fp32 (non-tensor) FLOP/s
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
-# fp32 operations per off-band segment pair in csrc/writhe.cu (an FMA is
-# two): differences 12, cross products 4x9, normalisations 4x11 (dot, +eps,
-# sqrt, divide, 3 scales), dots 4x5, clips 4x2, asin 4, sum 3, the sign's
-# two differences 6, cross 9, dot 5 and 2 compares, the scale 3
-OPS_PER_PAIR = 12 + 36 + 44 + 20 + 8 + 4 + 3 + 6 + 9 + 5 + 2 + 3
+# fp32 operations the function needs per off-band segment pair, whatever
+# the kernel's way of computing them (an FMA is two, a transcendental one):
+# differences 12, cross products 4x9, the normals' squared norms 4x5, +eps
+# 4, reciprocal square roots 4, the normals' dots as dot(c_k, c_k+1) times
+# both inverse norms 4x7, clips 4x2, asins 4, their sum 3, the sign's two
+# differences 6, cross 9, dot 5 and 2 compares, the scale 2
+OPS_PER_PAIR = 12 + 36 + 20 + 4 + 4 + 28 + 8 + 4 + 3 + 6 + 9 + 5 + 2 + 2
 
 
 T_START = time.perf_counter()
@@ -283,11 +296,57 @@ def check_case(writhe, name: str, coords: np.ndarray) -> float:
     asym = float((got - got.transpose(1, 2)).abs().max()) if got.numel() else 0.0
     assert asym <= SYM, (name, asym)
     err = float((got - want).abs().max()) if got.numel() else 0.0
+    sums = check_sums(writhe, name, x, got)
     log(f"  {name:<24} {tuple(coords.shape)}: max |kernel - plain| "
         f"{err:.3g}; against fp64, ||.||_F relative: kernel {rel:.3g}, "
         f"plain fp32 {rel_plain:.3g}; entries under ATOL hold {share:.3g} "
-        f"of ||W||_F; max |W - W^T| {asym:.3g}  ok")
+        f"of ||W||_F; max |W - W^T| {asym:.3g}; {sums}  ok")
     return err
+
+
+def sums_errors(writhe, x: torch.Tensor, w: torch.Tensor, wr: torch.Tensor,
+                acn: torch.Tensor) -> tuple[float, float, float, torch.Tensor]:
+    """The fused entry point's sums ``wr``, ``acn`` on ``x``, whose map is
+    ``w``: their largest errors against the plain version's in float64,
+    relative to its ACN (a random walk's writhe may cancel to ~0; the ACN
+    sums the magnitudes whose round-off the writhe collects), wr's then
+    acn's; the larger of both against ``w`` summed in float64, relative to
+    that ACN; and that ACN, (B,) float64."""
+    tiny = torch.finfo(torch.float64).tiny
+    ewr, eacn, _ = writhe.writhe_sums_ref(x.double())
+    scale = eacn.clamp_min(tiny)
+    rel_wr = float(((wr.double() - ewr).abs() / scale).max())
+    rel_acn = float(((acn.double() - eacn).abs() / scale).max())
+    del ewr, eacn
+    own = w.double()
+    own_wr = own.sum(dim=(1, 2)) / 2
+    own_acn = own.abs().sum(dim=(1, 2)) / 2
+    sum_err = float(torch.maximum((wr.double() - own_wr).abs(),
+                                  (acn.double() - own_acn).abs()).div(
+                                      own_acn.clamp_min(tiny)).max())
+    return rel_wr, rel_acn, sum_err, own_acn
+
+
+def check_sums(writhe, name: str, x: torch.Tensor, w: torch.Tensor) -> str:
+    """The fused entry point on ``x``: its map equal to the map kernel's
+    ``w``; its total writhe and ACN within WR_REL of the plain version's in
+    float64, relative to the ACN; and its sums against its own map's summed
+    in float64: each within 1e-5 of the ACN, the mean ACN within 1e-5. (The
+    mean ACN is held to the plain version's in float32 by phase 3's parity,
+    on the screen's batches.)"""
+    wr, acn, fused = writhe.writhe_map_sums(x)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, w), (name, "fused map differs")
+    if not x.shape[0]:
+        return "sums: none (B=0)"
+    rel_wr, rel_acn, sum_err, own_acn = sums_errors(writhe, x, w, wr, acn)
+    assert rel_wr <= WR_REL and rel_acn <= WR_REL, (name, rel_wr, rel_acn)
+    mean, own_mean = float(acn.double().mean()), float(own_acn.mean())
+    assert sum_err <= 1e-5, (name, sum_err)
+    assert abs(mean - own_mean) <= 1e-5 * abs(own_mean), (name, mean, own_mean)
+    return (f"fused sums against fp64, relative to the ACN: wr {rel_wr:.3g}, "
+            f"acn {rel_acn:.3g}; against its own map summed in fp64 "
+            f"{sum_err:.3g}")
 
 
 def phase_check(knots, writhe) -> float:
@@ -333,7 +392,8 @@ def phase_parity(knots, writhe) -> None:
         log(f"  ids 0-{n_ids - 1} at {n_points} points: kept {len(gpu[0])}, "
             f"knotted {len(gpu[1])}, cores {len(cores[0])}: card == CPU; "
             f"total writhe against fp64, max relative: card {wr_card:.3g}, "
-            f"CPU {wr_cpu:.3g}  ok")
+            f"CPU {wr_cpu:.3g}; mean ACN card against CPU "
+            f"{(gpu[3] - cpu[3]) / cpu[3]:.3g} relative  ok")
 
 
 def bound(b: int, n: int) -> tuple[float, str, dict]:
@@ -357,14 +417,31 @@ def phase_timing(knots, writhe) -> dict:
         f"{time.perf_counter() - t0:.2f} s on the host")
     x = torch.from_numpy(coords).cuda()
     out = writhe.writhe_map(x)
-    ms = median_ms(lambda: writhe.writhe_map(x), reps=10)
+    # the screen's entry point at the same shape: its map must be the map
+    # kernel's bit for bit (held to the plain version below, chunk by
+    # chunk), and its sums are held beside it
+    wr, acn, fused = knots.writhe_and_acn(x)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, out), "writhe_and_acn's map differs"
+    del fused
     bound_ms, bound_by, parts = bound(B_FULL, N_POINTS)
-    log(f"  kernel ({B_FULL}, {N_POINTS}, 3): median {ms:.3f} ms over 10; "
-        f"bound {bound_ms:.3f} ms ({bound_by}: {parts['ops']:.4g} fp32 ops "
-        f"-> {parts['ops_ms']:.3f} ms, {parts['bytes']:.4g} bytes -> "
-        f"{parts['bytes_ms']:.3f} ms); {bound_ms / ms:.1%} of the bound, "
-        f"{parts['ops'] / ms / 1e9:.1f} TFLOP/s, "
-        f"{parts['bytes'] / ms / 1e6:.0f} GB/s")
+    log(f"  bound {bound_ms:.3f} ms ({bound_by}: {parts['ops']:.4g} fp32 "
+        f"ops -> {parts['ops_ms']:.3f} ms, {parts['bytes']:.4g} bytes -> "
+        f"{parts['bytes_ms']:.3f} ms)")
+    calls = {"kernel": lambda: writhe.writhe_map(x),
+             "writhe_and_acn": lambda: knots.writhe_and_acn(x),
+             "composition": lambda: composed_sums(writhe.writhe_map, x)}
+    times = {}
+    for label, fn in calls.items():
+        times[label] = median_ms(fn, reps=10)
+        ms = times[label]
+        log(f"  {label} ({B_FULL}, {N_POINTS}, 3): median {ms:.3f} ms over "
+            f"10; {bound_ms / ms:.1%} of the bound, "
+            f"{parts['ops'] / ms / 1e9:.1f} TFLOP/s, "
+            f"{parts['bytes'] / ms / 1e6:.0f} GB/s")
+    ms = times["kernel"]
+    log(f"  writhe_and_acn / kernel {times['writhe_and_acn'] / ms:.3f}, "
+        f"composition / kernel {times['composition'] / ms:.3f}")
 
     # the plain version at the largest chunk that fits, sized from its peak
     # memory per structure, checked chunk by chunk against the kernel's map
@@ -381,6 +458,9 @@ def phase_timing(knots, writhe) -> dict:
     one_ms = median_ms(lambda: writhe.writhe_map_ref(x[:chunk]), reps=3,
                        warmup=1)
     plain_ms, err = 0.0, 0.0
+    rel_wr = rel_acn = sum_err = 0.0
+    own_acn = []
+    half = max(chunk // 2, 1)      # the float64 plain version: twice the bytes
     for s in range(0, B_FULL, chunk):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -393,17 +473,55 @@ def phase_timing(knots, writhe) -> dict:
         torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
         err = max(err, float((got - want).abs().max()))
         del want
+        for h in range(s, min(s + chunk, B_FULL), half):
+            e = sums_errors(writhe, x[h:h + half], out[h:h + half],
+                            wr[h:h + half], acn[h:h + half])
+            rel_wr, rel_acn = max(rel_wr, e[0]), max(rel_acn, e[1])
+            sum_err = max(sum_err, e[2])
+            own_acn.append(e[3])
     assert torch.equal(out, out.transpose(1, 2)), "kernel map not symmetric"
+    assert rel_wr <= WR_REL and rel_acn <= WR_REL, (rel_wr, rel_acn)
+    assert sum_err <= 1e-5, sum_err
+    mean, own_mean = float(acn.double().mean()), float(torch.cat(own_acn).mean())
+    assert abs(mean - own_mean) <= 1e-5 * abs(own_mean), (mean, own_mean)
     log(f"  plain ({chunk}, {N_POINTS}, 3): median {one_ms:.3f} ms over 3; "
         f"all {B_FULL} in chunks: {plain_ms:.3f} ms; full-size check: max "
         f"|kernel - plain| {err:.3g}  ok")
+    log(f"  writhe_and_acn ({B_FULL}, {N_POINTS}, 3): map == the map "
+        f"kernel's; sums against the plain version in fp64, relative to the "
+        f"ACN: wr {rel_wr:.3g}, acn {rel_acn:.3g}; against its own map "
+        f"summed in fp64 {sum_err:.3g}; mean ACN "
+        f"{(mean - own_mean) / own_mean:.3g} relative  ok")
     return {"ms": ms, "plain_ms": plain_ms, "plain_chunk": chunk,
             "plain_chunk_ms": one_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": err,
+            "fused_ms": times["writhe_and_acn"],
+            "composition_ms": times["composition"]}
 
 
-def phase_breakdown(knots, writhe) -> None:
-    """Where one screen + localize batch spends its time, piece by piece."""
+def composed_sums(writhe_map, x: torch.Tensor) -> tuple:
+    """The screen's sums as they were before the kernel fused them: the map
+    kernel, then ``W.sum() / 2`` and ``|W|.sum() / 2`` in PyTorch."""
+    w = writhe_map(x)
+    return (w.sum(dim=(1, 2)) / 2.0, torch.abs(w).sum(dim=(1, 2)) / 2.0, w)
+
+
+def peak_bytes(fn) -> int:
+    """Device memory ``fn`` allocates at its peak, above what was held."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def phase_breakdown(knots, writhe) -> dict:
+    """Where one screen + localize batch spends its time, piece by piece;
+    then the peak device memory of ``writhe_and_acn`` and of the
+    composition it replaced, on the same batch."""
     ids = list(range(B_FULL))
     t0 = time.perf_counter()
     knots.quality_score(ids)
@@ -428,6 +546,16 @@ def phase_breakdown(knots, writhe) -> None:
         f"| H2D {t3 - t2:.3f} s | writhe_and_acn {t4 - t3:.3f} s | "
         f"D2H {per_d2h:.3f} ms/structure | knot_core {per_core:.3f} "
         f"ms/structure (host clock, {B_FULL} x {N_POINTS})")
+    del wr, acn, w, block
+    peaks = {"writhe_and_acn": peak_bytes(lambda: knots.writhe_and_acn(x)),
+             "composition": peak_bytes(
+                 lambda: composed_sums(writhe.writhe_map, x))}
+    map_bytes = B_FULL * (N_POINTS - 1) ** 2 * 4
+    log(f"  peak device memory above the coordinates: writhe_and_acn "
+        f"{peaks['writhe_and_acn'] / 1e9:.3f} GB, the composition "
+        f"{peaks['composition'] / 1e9:.3f} GB (one map: "
+        f"{map_bytes / 1e9:.3f} GB)")
+    return peaks
 
 
 def phase_main_path(knots, writhe, KsaCluster) -> int:
@@ -748,9 +876,9 @@ AGAINST_PAIRS = 20
 
 
 def _load_against(other: Path):
-    """``build`` and ``kernels.flash_decode`` of the checkout at ``other``,
-    imported under another package name beside this tree's (its libraries
-    build under ``other/build``)."""
+    """``build``, ``kernels.flash_decode`` and ``kernels.writhe`` of the
+    checkout at ``other``, imported under another package name beside this
+    tree's (its libraries build under ``other/build``)."""
     import importlib
     import importlib.util
     name = "_against_repro_torch"
@@ -761,7 +889,42 @@ def _load_against(other: Path):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return (importlib.import_module(f"{name}.kernels.build"),
-            importlib.import_module(f"{name}.kernels.flash_decode"))
+            importlib.import_module(f"{name}.kernels.flash_decode"),
+            importlib.import_module(f"{name}.kernels.writhe"))
+
+
+def compare_writhe(other_writhe, writhe, knots) -> dict:
+    """The writhe map kernel and ``writhe_and_acn`` of this tree beside the
+    other tree's map kernel and its map kernel followed by the sums in
+    PyTorch (``writhe_and_acn`` before the sums were fused), at phase 4's
+    shape: the median of 5 calls (CUDA events) in AGAINST_PAIRS pairs that
+    alternate which tree runs first."""
+    coords, _ = knots.synthesize_batch(range(B_FULL), N_POINTS)
+    x = torch.from_numpy(coords).cuda()
+    calls = {
+        "writhe_map": {"this": lambda: writhe.writhe_map(x),
+                       "other": lambda: other_writhe.writhe_map(x)},
+        "writhe_and_acn": {
+            "this": lambda: knots.writhe_and_acn(x),
+            "other": lambda: composed_sums(other_writhe.writhe_map, x)}}
+    out: dict = {"shape": [B_FULL, N_POINTS, 3]}
+    for label, sides in calls.items():
+        reads: dict = {"this": [], "other": []}
+        for i in range(AGAINST_PAIRS):
+            for side in (("other", "this") if i % 2 == 0
+                         else ("this", "other")):
+                reads[side].append(median_ms(sides[side], reps=5))
+        ratio = [a / b for a, b in zip(reads["this"], reads["other"])]
+        out[label] = {"this": _spread(reads["this"]),
+                      "other": _spread(reads["other"]),
+                      "this_over_other": _spread(ratio), "readings": reads}
+        for side in ("this", "other", "this_over_other"):
+            sp = out[label][side]
+            unit = "" if side == "this_over_other" else " ms"
+            log(f"  {label:<15} {side:<16} median {sp['median']:.4f}{unit}, "
+                f"quartiles {sp['q1']:.4f}-{sp['q3']:.4f}, range "
+                f"{sp['min']:.4f}-{sp['max']:.4f}")
+    return out
 
 
 def _spread(xs: list[float]) -> dict:
@@ -770,26 +933,32 @@ def _spread(xs: list[float]) -> dict:
             "min": min(xs), "max": max(xs)}
 
 
-def compare_against(other: Path, fd, build, fdc, smi: str) -> dict:
-    """This tree's flash-decode wrappers beside the checkout at ``other``'s
-    (its parent, say), in one process on one card. Host time a call
+def compare_against(other: Path, fd, build, fdc, writhe, knots,
+                    smi: str) -> dict:
+    """This tree's writhe calls (:func:`compare_writhe`) and flash-decode
+    wrappers beside the checkout at ``other``'s (its parent, say), in one
+    process on one card. Host time a call
     (:func:`host_us`) at the gemma3-1b shapes in AGAINST_PAIRS pairs that
     alternate which tree runs first, with each side's spread and that of
     the paired differences; then device time at the six phase-9 shapes in
     the order other, this, this, other, queued as phase 9 times it and
     unqueued (the host's launch time inside the events, as phase 9 timed
     before it queued)."""
-    other_build, other_fd = _load_against(other)
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(lambda b: b.build("flash_decode"),
-                              (build, other_build)))
-    for side, res in zip(("this", "other"), built):
-        log(f"build flash_decode.cu ({side}): {res.seconds:.2f} s -> "
-            f"{res.path}")
-    trees = {"this": fd, "other": other_fd}
-    main = fdc.main_path_cases()
+    other_build, other_fd, other_writhe = _load_against(other)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        built = list(pool.map(lambda bn: (bn[0].build(bn[1]), bn[1]),
+                              [(b, n) for n in ("writhe", "flash_decode")
+                               for b in (build, other_build)]))
+    for side, (res, src) in zip(("this", "other") * 2, built):
+        log(f"build {src}.cu ({side}): {res.seconds:.2f} s -> {res.path}")
     out: dict = {"against": str(other), "card": smi, "pairs": AGAINST_PAIRS,
                  "host_us": {}, "device_ms": {}}
+    log(f"== writhe at ({B_FULL}, {N_POINTS}, 3), device ms, "
+        f"{AGAINST_PAIRS} alternating pairs ({smi})")
+    out["writhe"] = compare_writhe(other_writhe, writhe, knots)
+    torch.cuda.empty_cache()
+    trees = {"this": fd, "other": other_fd}
+    main = fdc.main_path_cases()
     log(f"== host time a call, {AGAINST_PAIRS} alternating pairs ({smi})")
     for label in ("gemma3_1b_ring", "gemma3_1b_paged"):
         case = main[label]
@@ -2467,12 +2636,13 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
         import _flash_decode_cases as fdc
-        from repro_torch.kernels import build
+        from repro_torch.apps import knots
+        from repro_torch.kernels import build, writhe
         from repro_torch.kernels import flash_decode as fd
         torch.cuda.set_device(0)
         smi = nvidia_smi()
         print(json.dumps(compare_against(Path(sys.argv[2]), fd, build, fdc,
-                                         smi)))
+                                         writhe, knots, smi)))
         print(smi, flush=True)
         return 0
     if sys.argv[1:]:
@@ -2509,7 +2679,7 @@ def main() -> int:
         timing = phase_timing(knots, writhe)
         torch.cuda.empty_cache()
         log("== 5. breakdown of one batch")
-        phase_breakdown(knots, writhe)
+        peaks = phase_breakdown(knots, writhe)
         torch.cuda.empty_cache()
         log(f"== 6. main path: KsaCluster.run_campaign, {CAMPAIGN} structures")
         launches = phase_main_path(knots, writhe, KsaCluster)
@@ -2613,6 +2783,12 @@ def main() -> int:
         "shape": [B_FULL, N_POINTS, 3],
         "plain_chunk": timing["plain_chunk"],
         "plain_chunk_ms": timing["plain_chunk_ms"],
+        # writhe_and_acn: the map and both sums in one launch; the
+        # composition: the map kernel, then the sums in PyTorch
+        "fused_ms": timing["fused_ms"],
+        "composition_ms": timing["composition_ms"],
+        "fused_peak_bytes": peaks["writhe_and_acn"],
+        "composition_peak_bytes": peaks["composition"],
         "check": "pass",
     }]
     for name, main_shape, replaces in (

@@ -24,6 +24,7 @@ import torch
 from repro_torch.convert import resolve_device
 from repro_torch.core import ClusterComputing, register_script
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.writhe import writhe_map_sums
 
 WRITHE_KNOT_THRESHOLD = 2.5   # |Wr| above this ⇒ knot candidate
 QUALITY_THRESHOLD = 0.70      # emulated pLDDT cut (paper: 70)
@@ -128,12 +129,13 @@ def quality_score(ids: list[int]) -> np.ndarray:
 
 def writhe_and_acn(coords: torch.Tensor, *, use_pallas: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (total writhe (B,), ACN (B,), writhe map (B, n, n)), on the
-    device of ``coords``. ``use_pallas`` is kept for signature parity."""
-    w = kops.writhe(coords, use_pallas=use_pallas)
-    wr = w.sum(dim=(1, 2)) / 2.0
-    acn = torch.abs(w).sum(dim=(1, 2)) / 2.0
-    return wr, acn, w
+    """coords (B, n, 3) -> (total writhe (B,), ACN (B,), writhe map
+    (B, n-1, n-1)), on the device of ``coords``. On the card one kernel
+    launch writes the map and both sums (no second map-sized tensor); on
+    the CPU the plain map, then ``W.sum() / 2`` and ``|W|.sum() / 2``.
+    ``use_pallas`` is kept for signature parity."""
+    del use_pallas
+    return writhe_map_sums(coords)
 
 
 def knot_core(wmap: np.ndarray, threshold: float = WRITHE_KNOT_THRESHOLD,

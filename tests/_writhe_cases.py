@@ -5,6 +5,10 @@ Imports neither jax nor the port, so the card tests run where jax is absent.
 import numpy as np
 
 ATOL, RTOL, SYM = 6e-4, 1e-3, 1e-4
+# a structure's total writhe against float64, relative (chip_smoke.py's
+# WR_REL); the card tests scale it by the ACN, the sum of the magnitudes
+# whose round-off it collects, since a random walk's writhe may cancel to ~0
+WR_REL = 3e-4
 
 
 def trefoil(n=120, noise=0.0, seed=0):
@@ -52,11 +56,6 @@ CASES = {
     **{f"degenerate_{k}": (lambda k=k: degenerate(k))
        for k in ("repeated", "straight", "point", "planar", "short", "empty")},
 }
-
-
-# The reference's own round-off makes the noisy trefoil's map asymmetric by
-# about 1.1e-4: (i, j) and (j, i) are evaluated in two operand orders.
-ASYMMETRIC = {"trefoil"}
 
 
 # The reference's own round-off makes the noisy trefoil's map asymmetric by
