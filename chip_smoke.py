@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA Hopper GPU.
 
-Drives the port's four main paths through ``repro_torch.cluster.
-KsaCluster``: the AlphaKnot campaign at the paper's batch size (4000
-structures per task) on 512-point backbones, the serving decode path
-(tokenize -> generate -> postprocess) on gemma3-1b at full width, and the
-fault-tolerant training campaigns on mamba2-130m and on gemma3-1b at full
-width. It builds every CUDA kernel of those paths from this checkout, holds
-each against its plain PyTorch version on the card, and times it beside its
-bound. Phases:
+Drives the port's main paths through ``repro_torch.cluster.KsaCluster``:
+the AlphaKnot campaign at the paper's batch size (4000 structures per task)
+on 512-point backbones, the serving decode path (tokenize -> generate ->
+postprocess) on gemma3-1b, recurrentgemma-2b and moonshot-v1-16b-a3b at
+full width, the fault-tolerant training campaigns on mamba2-130m and on
+gemma3-1b at full width, and one full-width layer of deepseek-v3-671b
+through the serving engine. It builds every CUDA kernel of those paths
+from this checkout, holds each against its plain PyTorch version on the
+card, and times it beside its bound. Phases:
 
 1. environment: torch, CUDA, nvcc, the card (nvidia-smi), msgpack;
 2. build: nvcc for sm_90a, with the build time and ptxas' report;
@@ -36,10 +37,12 @@ bound. Phases:
    phase 2), with the build time and ptxas' report;
 8. flash-decode kernels against their plain versions on the card: the
    cases of tests/test_serve.py and the split's edges in float32 at atol
-   2e-5 (empty lanes exactly zero), then the main path's shapes in bf16
-   against the plain version in float32 on the same bf16 inputs at 2e-2;
-   every call bit-identical to a second one;
-9. flash-decode timing at the main path's shapes and at B=64 x 8192 keys
+   2e-5 (empty lanes exactly zero; groups of 10 and 16 query heads on a
+   KV head among them), then the serving paths' shapes in bf16 against the
+   plain version in float32 on the same bf16 inputs at 2e-2; every call
+   bit-identical to a second one;
+9. flash-decode timing at the serving paths' shapes (gemma3-1b, stablelm
+   width, recurrentgemma-2b's G = 10) and at B=64 x 8192 keys
    (stablelm width), each call queued behind a spin on the card so that
    its device time alone is timed: kernel, plain version, one
    ``scaled_dot_product_attention`` call as the yardstick, and the bound,
@@ -110,10 +113,33 @@ bound. Phases:
    share and kernels a step;
 22. one train step of gemma3-1b at full width cut to 2 layers (one local,
    one global) in float32 on the card and on the CPU, through both
-   kernels: loss, grad norm and updated params agree.
+   kernels: loss, grad norm and updated params agree;
+23. recurrentgemma-2b at full width in bf16 served through
+   ``serve_pipeline``: 8 requests of 96-160 prompt tokens, 16 new tokens
+   each, one generate task, 8 slots, max_len 4096 (2048-row rings): exactly
+   8 dense flash-decode launches (G = 10) and no paged one a step, no
+   plain attention on the card; makespan, tokens/s, median step, device
+   busy, device ms a step by kernel, peak memory, the weights bound;
+24. recurrentgemma-2b at full width in float32: the dense (max_len 4096)
+   and paged (max_len 1024) flash engines' greedy tokens equal the chunked
+   engine's; the dense flash engine's decode logits against the
+   whole-sequence forward (the RG-LRU scan, flash attention at G = 10,
+   window 2048) on the same tokens, relative 2e-4;
+25. moonshot-v1-16b-a3b at full width and depth (48 layers, 64 experts) in
+   bf16, served as in 23 but paged (max_len 1024, pages of 64): exactly 48
+   paged launches and no dense one a step, beside the weights bound of a
+   dropless step; then at full width cut to 8 layers in float32: the paged
+   flash engine's tokens equal the chunked engine's, and ``moe_capacity``
+   (dropless) equals ``moe_ref`` on one layer's experts (relative 1e-5);
+26. deepseek-v3-671b at full width cut to one layer (MLA, 256 experts): 4
+   requests through the dense engine in bf16 (a paged engine raises, as in
+   the reference), the step beside the weights bound; in float32 the
+   absorbed decode's logits against the materialized whole-sequence
+   forward's (the MoE there dropless too), relative 2e-4.
 
-The last three lines of its output are the kernels line (JSON), the card's
-name and power limit as nvidia-smi gives them, and the result line (JSON).
+The last four lines of its output are the families line (JSON: phases
+23-26), the kernels line (JSON), the card's name and power limit as
+nvidia-smi gives them, and the result line (JSON).
 It exits non-zero, and prints no result, when CUDA is unavailable, when the
 repository's sources are missing, or when any phase fails.
 
@@ -125,8 +151,9 @@ in PyTorch) and the flash-decode wrappers of this checkout beside those of
 the checkout at DIR (the parent commit, unpacked with ``git archive``) in
 one process: the writhe calls' device time at phase 4's shape in
 alternating pairs, the decode wrappers' host time a call in alternating
-pairs and device time at phase 9's shapes. It prints the readings as one
-JSON line, then the card's name and power limit.
+pairs and device time at phase 9's shapes that both checkouts take, in
+alternating pairs. It prints the readings as one JSON line, then the card's
+name and power limit.
 ``python3 chip_smoke.py --train-against DIR`` likewise runs phase 15's
 mamba2-130m train step (full width, 8 x 2048 tokens, no campaign) of DIR
 and of this checkout, each in a process of its own, in the order DIR,
@@ -137,6 +164,7 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import gc
 import json
 import math
 import os
@@ -849,8 +877,7 @@ def _large_case(fdc, kind: str) -> tuple[dict, dict, int]:
 def phase_flash_timing(fd, fdc) -> dict:
     out: dict = {}
     main = fdc.main_path_cases()
-    for label in ("gemma3_1b_ring", "gemma3_1b_paged", "stablelm_dense",
-                  "stablelm_paged"):
+    for label in fdc.MAIN_PATH:
         case = main[label]
         out[label] = _time_case(fd, label, case,
                                 _fd_inputs(case, torch.bfloat16),
@@ -940,10 +967,12 @@ def compare_against(other: Path, fd, build, fdc, writhe, knots,
     process on one card. Host time a call
     (:func:`host_us`) at the gemma3-1b shapes in AGAINST_PAIRS pairs that
     alternate which tree runs first, with each side's spread and that of
-    the paired differences; then device time at the six phase-9 shapes in
-    the order other, this, this, other, queued as phase 9 times it and
+    the paired differences; then device time at the phase-9 shapes that
+    both trees take (a tree whose kernels stop at G = 8 skips
+    recurrentgemma-2b's), in AGAINST_PAIRS // 2 pairs of medians that
+    alternate which tree runs first, queued as phase 9 times it and
     unqueued (the host's launch time inside the events, as phase 9 timed
-    before it queued)."""
+    before it queued), with each side's spread and that of the ratios."""
     other_build, other_fd, other_writhe = _load_against(other)
     with ThreadPoolExecutor(max_workers=4) as pool:
         built = list(pool.map(lambda bn: (bn[0].build(bn[1]), bn[1]),
@@ -980,8 +1009,11 @@ def compare_against(other: Path, fd, build, fdc, writhe, knots,
             log(f"  {label:<16} {side:<16} median {sp['median']:.2f} us, "
                 f"quartiles {sp['q1']:.2f}-{sp['q3']:.2f}, range "
                 f"{sp['min']:.2f}-{sp['max']:.2f}")
-    log("== device time a call: other, this, this, other")
-    shapes = [(label, main[label], None) for label in fdc.MAIN_PATH]
+    log(f"== device time a call, {AGAINST_PAIRS // 2} alternating pairs of "
+        f"medians")
+    shapes = [(label, main[label], None) for label in fdc.MAIN_PATH
+              if main[label]["q"].shape[2] // main[label]["k"].shape[2]
+              <= other_fd.MAX_G]
     shapes += [(f"large_{kind}", None, kind) for kind in ("dense", "paged")]
     for label, case, large in shapes:
         if large:
@@ -992,16 +1024,25 @@ def compare_against(other: Path, fd, build, fdc, writhe, knots,
             reps = 50
         out["device_ms"][label] = {}
         for queued in (True, False):
-            times: dict = {"this": [], "other": []}
-            for side in ("other", "this", "this", "other"):
-                times[side].append(_median_flushed(
-                    lambda: _fd_call(trees[side], case, t), reps,
-                    queued=queued))
+            reads: dict = {"this": [], "other": []}
+            for i in range(AGAINST_PAIRS // 2):
+                for side in (("other", "this") if i % 2 == 0
+                             else ("this", "other")):
+                    reads[side].append(_median_flushed(
+                        lambda: _fd_call(trees[side], case, t), reps,
+                        queued=queued))
+            ratio = [a / b for a, b in zip(reads["this"], reads["other"])]
             how = "queued" if queued else "unqueued"
-            out["device_ms"][label][how] = times
-            log(f"  {label:<16} {how:<8} other {times['other'][0]:.4f} / "
-                f"{times['other'][1]:.4f} ms, this {times['this'][0]:.4f} / "
-                f"{times['this'][1]:.4f} ms")
+            out["device_ms"][label][how] = {
+                "this": _spread(reads["this"]),
+                "other": _spread(reads["other"]),
+                "this_over_other": _spread(ratio), "readings": reads}
+            r = out["device_ms"][label][how]["this_over_other"]
+            log(f"  {label:<23} {how:<8} other "
+                f"{statistics.median(reads['other']):.4f} ms, this "
+                f"{statistics.median(reads['this']):.4f} ms; this / other "
+                f"median {r['median']:.4f}, range {r['min']:.4f}-"
+                f"{r['max']:.4f}")
         del t
         torch.cuda.empty_cache()
     return out
@@ -1084,13 +1125,14 @@ def train_against(other: Path, smi: str) -> dict:
     return out
 
 
-def _texts(n: int, seed: int) -> list[dict]:
-    """Request texts of 540-700 characters: words over a small alphabet."""
+def _texts(n: int, seed: int, lo: int = 540, hi: int = 700) -> list[dict]:
+    """Request texts of lo-hi characters (a token each): words over a small
+    alphabet."""
     rng = np.random.RandomState(seed)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     out = []
     for i in range(n):
-        length = int(rng.randint(540, 701))
+        length = int(rng.randint(lo, hi + 1))
         words = []
         while sum(len(w) + 1 for w in words) < length:
             words.append("".join(rng.choice(letters, rng.randint(2, 10))))
@@ -1098,19 +1140,30 @@ def _texts(n: int, seed: int) -> list[dict]:
     return out
 
 
-def _serving_model(models, configs):
-    cfg = configs.get_config(SERVE_ARCH)
+def _serving_model(models, configs, cfg=None, dtype=torch.bfloat16):
+    """Random weights (seed 0) for ``cfg`` (the serving cell's by default),
+    drawn on the card in ``dtype``."""
+    cfg = cfg or configs.get_config(SERVE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params = models.init_params(models.model_spec(cfg), gen, torch.bfloat16,
-                                "cuda")
+    params = models.init_params(models.model_spec(cfg), gen, dtype, "cuda")
     torch.cuda.synchronize()
     n = sum(p.numel() for p in _leaves(params))
-    log(f"  {cfg.name}: {cfg.n_layers} layers ({cfg.layer_kinds().count('local')}"
-        f" local, {cfg.layer_kinds().count('attn')} global), d_model "
+    kinds = cfg.layer_kinds()
+    mix = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    extra = ""
+    if cfg.moe is not None:
+        extra += (f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+                  f"of {cfg.moe.d_expert} + {cfg.moe.n_shared} shared")
+    if cfg.mla is not None:
+        extra += f", MLA latent {cfg.mla.kv_lora_rank} + rope " \
+                 f"{cfg.mla.rope_head_dim}"
+    log(f"  {cfg.name}: {cfg.n_layers} layers ({mix}), d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV head(s) "
-        f"of {cfg.head_dim}, vocab {cfg.vocab_size}; {n / 1e9:.3f} B params "
-        f"in bf16 drawn on the card in {time.perf_counter() - t0:.2f} s")
+        f"of {cfg.head_dim}, vocab {cfg.vocab_size}{extra}; {n / 1e9:.3f} B "
+        f"params ({n * torch.empty((), dtype=dtype).element_size() / 1e9:.2f}"
+        f" GB) in {str(dtype).replace('torch.', '')} drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
     return cfg, params
 
 
@@ -1188,17 +1241,28 @@ def _device_share(trace: dict, steps: int = PROFILE_STEPS) -> dict | None:
             "by_kernel": [(n, v / 1e3 / steps) for n, v in ranked]}
 
 
-def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
-    n_dense = cfg.layer_kinds().count("local")
-    n_paged = cfg.layer_kinds().count("attn")
-    eng = serve.ServeEngine(cfg, params, paged=True, page_size=64,
-                            decode_kernel="flash", n_slots=8, max_len=1024,
-                            device="cuda")
+def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile, *,
+                  texts=None, engine_kw=None, n_dense=None, n_paged=None,
+                  plain_watch=None) -> dict:
+    """A ``serve_pipeline`` campaign through ``KsaCluster`` on one GPU
+    worker whose engine (8 slots, flash decode; gemma3-1b's serving cell:
+    paged, max_len 1024, pages of 64, unless ``engine_kw`` says otherwise)
+    answers ``texts``; asserts ``n_dense`` dense and ``n_paged`` paged
+    flash-decode launches an engine step (the local and global attention
+    layers by default) and, with ``plain_watch``, no plain attention on the
+    card."""
+    kinds = cfg.layer_kinds()
+    n_dense = kinds.count("local") if n_dense is None else n_dense
+    n_paged = kinds.count("attn") if n_paged is None else n_paged
+    kw = dict(paged=True, page_size=64, max_len=1024) if engine_kw is None \
+        else engine_kw
+    eng = serve.ServeEngine(cfg, params, decode_kernel="flash", n_slots=8,
+                            device="cuda", **kw)
     eng.run_until_drained([("warm-up", [1, 2, 3, 4, 5], 2)])  # first launches
     serve.ServeRequestComputing.engine = eng
     step_s: list = []
     trace: dict = {}
-    texts = _texts(N_TEXTS, seed=1)
+    texts = texts or _texts(N_TEXTS, seed=1)
     lens = [len(x["text"]) for x in texts]
     # trace steps late in the first generate task's prompts: the rings are
     # full and every slot holds about 9 pages
@@ -1212,25 +1276,31 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
                                         vocab_size=cfg.vocab_size,
                                         max_new=MAX_NEW)
             steps0 = eng.steps
-            fd.flash_decode.launches = 0       # count only the main path's run
-            fd.flash_decode_paged.launches = 0
-            res = c.run_campaign(spec, texts, timeout_s=900.0)
-            dense, paged = fd.flash_decode.launches, fd.flash_decode_paged.launches
+            torch.cuda.reset_peak_memory_stats()
+            with plain_watch or contextlib.nullcontext({}) as plain:
+                fd.flash_decode.launches = 0   # count only this path's run
+                fd.flash_decode_paged.launches = 0
+                res = c.run_campaign(spec, texts, timeout_s=900.0)
+                dense = fd.flash_decode.launches
+                paged = fd.flash_decode_paged.launches
             steps = eng.steps - steps0
+            peak = torch.cuda.max_memory_allocated()
             rep = c.campaign_report(res.campaign_id)
     finally:
         serve.ServeRequestComputing.engine = None
     assert res.status.state == "COMPLETED", res.status.state
     agg = res.final
-    assert agg["n_requests"] == N_TEXTS, agg["n_requests"]
+    assert agg["n_requests"] == len(texts), agg["n_requests"]
     assert all(r["n_tokens"] == MAX_NEW for r in agg["responses"].values())
-    assert eng.allocator.used_pages == 0, eng.allocator.used_pages
-    eng.allocator.check()
+    if eng.allocator is not None:
+        assert eng.allocator.used_pages == 0, eng.allocator.used_pages
+        eng.allocator.check()
     assert steps > 0 and dense == n_dense * steps and paged == n_paged * steps, \
         (steps, dense, paged)
+    assert not plain, f"plain versions ran on the card: {plain}"
     tokens = agg["total_tokens"]
     step_ms = statistics.median(step_s[-(steps - PROFILE_STEPS):]) * 1e3
-    log(f"  {N_TEXTS} requests of {min(lens)}-{max(lens)} prompt tokens, "
+    log(f"  {len(texts)} requests of {min(lens)}-{max(lens)} prompt tokens, "
         f"{MAX_NEW} new tokens each: makespan {res.elapsed_s:.2f} s, "
         f"{tokens / res.elapsed_s:.2f} generated tokens/s, "
         f"{(tokens + sum(lens)) / res.elapsed_s:.1f} tokens/s with the "
@@ -1241,8 +1311,10 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
             f"{s['queue_s']:.2f} s, run {s['run_s']:.2f} s, wall "
             f"{s['wall_s']:.2f} s")
     log(f"  launches: flash_decode {dense} = {n_dense} x {steps} steps, "
-        f"flash_decode_paged {paged} = {n_paged} x {steps}; pages all "
-        f"returned  ok")
+        f"flash_decode_paged {paged} = {n_paged} x {steps}"
+        f"{'; pages all returned' if eng.allocator is not None else ''}"
+        f"{'; no plain version on the card' if plain_watch else ''}  ok; "
+        f"peak device memory {peak / 1e9:.2f} GB")
     share = _device_share(trace)
     if share is None or share["busy"] is None:
         log("  torch.profiler: no device time recorded (busy share not "
@@ -1262,7 +1334,7 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
             f"{n} {ms:.4f}" for n, ms in mine) or "none recorded"))
     return {"makespan_s": res.elapsed_s, "tokens": tokens,
             "tokens_per_s": tokens / res.elapsed_s, "steps": steps,
-            "step_ms": step_ms, "device": share,
+            "step_ms": step_ms, "device": share, "peak_bytes": peak,
             "launches": {"flash_decode": dense,
                          "flash_decode_paged": paged}}
 
@@ -1270,8 +1342,8 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile) -> dict:
 def _greedy_with_logits(serve, cfg, params, prompts, **kw) -> tuple:
     """Greedy tokens per request, and the logits row of each generated
     token."""
-    eng = serve.ServeEngine(cfg, params, n_slots=N_EXACT, max_len=1024,
-                            device="cuda", **kw)
+    kw.setdefault("max_len", 1024)
+    eng = serve.ServeEngine(cfg, params, n_slots=N_EXACT, device="cuda", **kw)
     rows: dict = {}
     inner = eng._serve
 
@@ -1286,22 +1358,30 @@ def _greedy_with_logits(serve, cfg, params, prompts, **kw) -> tuple:
     return eng.run_until_drained(reqs), rows
 
 
-def phase_exactness(cfg, params, serve) -> None:
+def phase_exactness(cfg, params, serve, prompts=None, ref_kw=None,
+                    variants=None) -> dict:
     """float32 at full width: the dense chunked engine (the reference) and
     the flash engines must give equal greedy tokens. Near-tie rule: if the
     first difference falls where the reference's top two logits lie within
     1e-3, that step's logits must agree within 1e-3 and the request is
-    compared no further."""
+    compared no further. ``cfg`` and ``params`` in float32 unless they are
+    bf16 (gemma3-1b's serving cell), then cast; returns each engine's
+    tokens and logits rows by label, the reference's under "reference"."""
     cfg32 = cfg.with_(dtype="float32")
     p32 = _map(lambda x: x.float(), params)
-    prompts = [[ord(ch) % cfg.vocab_size for ch in x["text"]]
-               for x in _texts(N_TEXTS, seed=1)[:N_EXACT]]
+    prompts = prompts or [[ord(ch) % cfg.vocab_size for ch in x["text"]]
+                          for x in _texts(N_TEXTS, seed=1)[:N_EXACT]]
     ref, ref_rows = _greedy_with_logits(serve, cfg32, p32, prompts,
-                                        decode_kernel="chunked")
-    for label, kw in (("dense flash", dict(decode_kernel="flash")),
-                      ("paged flash", dict(decode_kernel="flash", paged=True,
-                                           page_size=64))):
+                                        decode_kernel="chunked",
+                                        **(ref_kw or {}))
+    runs = {"reference": (ref, ref_rows)}
+    if variants is None:
+        variants = (("dense flash", dict(decode_kernel="flash")),
+                    ("paged flash", dict(decode_kernel="flash", paged=True,
+                                         page_size=64)))
+    for label, kw in variants:
         got, rows = _greedy_with_logits(serve, cfg32, p32, prompts, **kw)
+        runs[label] = (got, rows)
         worst = 0.0
         for rid, want in ref.items():
             have = got[rid]
@@ -1325,6 +1405,7 @@ def phase_exactness(cfg, params, serve) -> None:
             f"reference| {worst:.3g}  ok")
     del p32
     torch.cuda.empty_cache()
+    return runs
 
 
 def _map(fn, tree):
@@ -2611,6 +2692,224 @@ def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
             "param_err": worst}
 
 
+# -- the remaining model families, served (phases 23-26) ----------------------
+
+RG_ARCH, MOE_ARCH, MLA_ARCH = ("recurrentgemma_2b", "moonshot_v1_16b_a3b",
+                               "deepseek_v3_671b")
+# 8 requests, one generate task of the pipeline's batch of 8
+FAMILY_TEXTS, FAMILY_LO, FAMILY_HI = 8, 96, 160
+# float32 decode logits against the whole-sequence forward on the same
+# tokens, max |diff| over max |logit|: the two paths sum in other orders
+# (the scan against the step, the whole-sequence kernel against the decode
+# kernel, materialized against absorbed MLA) through up to 26 layers, about
+# a thousand float32 ulps of the largest logit
+FAMILY_LOGITS_REL = 2e-4
+# moe_capacity (dropless) against moe_ref in float32 at full width, max
+# |diff| over max |out|: the same products summed over d_model and d_expert
+# in two orders (batched products against einsums)
+MOE_REL = 1e-5
+MOE_EXACT_LAYERS = 8      # moonshot's depth in its float32 check
+MOE_TOKENS = 64           # tokens of the one-layer MoE check
+
+
+def _family_prompts(cfg, n: int, seed: int, lo: int, hi: int) -> list:
+    return [[ord(ch) % cfg.vocab_size for ch in x["text"]]
+            for x in _texts(n, seed=seed, lo=lo, hi=hi)]
+
+
+def _free() -> None:
+    """Give the card back what freed models held."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _whole_against_decode(models, cfg, params, prompts, runs, label,
+                          whole_cfg=None) -> float:
+    """Each request's prompt and generated tokens (the ``label`` engine's,
+    ``runs`` from :func:`phase_exactness`) through one whole-sequence
+    forward; the logits that chose each generated token against the decode
+    step's row. Returns max |diff| over max |logit|, held to
+    FAMILY_LOGITS_REL."""
+    toks, rows = runs[label]
+    worst, scale = 0.0, 0.0
+    with torch.no_grad():
+        for i, prompt in enumerate(prompts):
+            rid = f"x{i}"
+            seq = list(prompt) + toks[rid][:-1]
+            logits, _, _ = models.forward(
+                params, whole_cfg or cfg,
+                {"tokens": torch.tensor([seq], device="cuda")})
+            for j, row in enumerate(rows[rid]):
+                whole = logits[0, len(prompt) - 1 + j, :cfg.vocab_size].cpu()
+                worst = max(worst, float((whole - row[:cfg.vocab_size])
+                                         .abs().max()))
+                scale = max(scale, float(whole.abs().max()))
+    rel = worst / scale
+    assert rel <= FAMILY_LOGITS_REL, (label, worst, scale)
+    log(f"  {label} decode logits against the whole-sequence forward on the "
+        f"same tokens ({len(prompts)} requests x {MAX_NEW_EXACT} tokens): "
+        f"max |diff| {worst:.3g}, max |logit| {scale:.3g}, relative "
+        f"{rel:.3g} (limit {FAMILY_LOGITS_REL})  ok")
+    return rel
+
+
+def phase_family_serving(fd, models, configs, serve, KsaCluster,
+                         ResourceProfile, arch, engine_kw, n_dense, n_paged,
+                         plain_watch, smi) -> dict:
+    """One family's serving cell at full width in bf16 (random weights,
+    seed 0): FAMILY_TEXTS requests of FAMILY_LO-FAMILY_HI prompt tokens and
+    MAX_NEW new ones through ``serve_pipeline`` on one GPU worker, with the
+    launch counts asserted, beside the weights bound of a step."""
+    cfg, params = _serving_model(models, configs, configs.get_config(arch))
+    texts = _texts(FAMILY_TEXTS, seed=2, lo=FAMILY_LO, hi=FAMILY_HI)
+    served = phase_serving(fd, cfg, params, serve, KsaCluster,
+                           ResourceProfile, texts=texts, engine_kw=engine_kw,
+                           n_dense=n_dense, n_paged=n_paged,
+                           plain_watch=plain_watch)
+    served["bound_ms"] = bound_ms = _weights_bound_ms(cfg, params)
+    log(f"  a dropless decode step reads every weight but the token table "
+        f"once: bound {bound_ms:.2f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s "
+        f"against the median step {served['step_ms']:.2f} ms ({smi})")
+    del params
+    _free()
+    return served
+
+
+def _weights_bound_ms(cfg, params) -> float:
+    """Bytes of every parameter a decode step reads (all but the token
+    embedding's table, of which it gathers 8 rows; the unembedding whole),
+    over the card's memory rate."""
+    n = sum(p.numel() * p.element_size() for p in _leaves(params))
+    table = params["embed"]["embedding"]
+    if not cfg.tie_embeddings:
+        n -= table.numel() * table.element_size()
+    return n / HBM_BYTES_S * 1e3
+
+
+def phase_rg_exactness(fa, models, configs, serve, smi) -> dict:
+    """recurrentgemma-2b at full width in float32: the flash engines' greedy
+    tokens against the chunked engine's, dense at max_len 4096 (2048-row
+    rings, dense flash-decode at G = 10) and paged at max_len 1024 (the
+    local layers paged: the paged kernel at G = 10); then the dense flash
+    engine's decode logits (rglru_step, flash-decode) against the
+    whole-sequence forward (rglru_scan, the flash-attention kernel at G =
+    10, window 2048) on the same tokens."""
+    t0 = time.perf_counter()
+    cfg, params = _serving_model(models, configs,
+                                 configs.get_config(RG_ARCH).with_(
+                                     dtype="float32"), torch.float32)
+    prompts = _family_prompts(cfg, N_EXACT, seed=3, lo=40, hi=64)
+    runs = phase_exactness(cfg, params, serve, prompts,
+                           ref_kw=dict(max_len=4096), variants=(
+        ("dense flash", dict(decode_kernel="flash", max_len=4096)),
+        ("paged flash", dict(decode_kernel="flash", paged=True,
+                             page_size=64, max_len=1024))))
+    before = fa.flash_attention.launches
+    rel = _whole_against_decode(models, cfg, params, prompts, runs,
+                                "dense flash")
+    n_local = cfg.layer_kinds().count("local")
+    assert fa.flash_attention.launches - before == n_local * len(prompts)
+    log(f"  the whole-sequence forwards ran flash_attention "
+        f"{n_local * len(prompts)} times ({n_local} local layers x "
+        f"{len(prompts)}); {time.perf_counter() - t0:.1f} s ({smi})")
+    del params, runs
+    _free()
+    return {"logits_rel": rel}
+
+
+def phase_moe_exactness(models, configs, serve, smi) -> dict:
+    """moonshot-v1-16b-a3b at full width, depth cut to MOE_EXACT_LAYERS, in
+    float32: the paged flash engine's greedy tokens against the chunked
+    engine's; then, on one layer's full-width experts, moe_capacity
+    (dropless) against moe_ref on MOE_TOKENS tokens."""
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    cfg, params = _serving_model(
+        models, configs, configs.get_config(MOE_ARCH).with_(
+            n_layers=MOE_EXACT_LAYERS, dtype="float32"), torch.float32)
+    prompts = _family_prompts(cfg, N_EXACT, seed=4, lo=40, hi=64)
+    phase_exactness(cfg, params, serve, prompts, variants=(
+        ("paged flash", dict(decode_kernel="flash", paged=True,
+                             page_size=64)),))
+    ffn = params["periods"]["0"]["ffn"]
+    layer = {k: (v[0] if k != "shared" else v) for k, v in ffn.items()}
+    layer["shared"] = {k: v[0] for k, v in ffn["shared"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((MOE_TOKENS, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        got, aux = moe.moe_capacity(layer, cfg, x, capacity=MOE_TOKENS)
+        want, aux_ref = moe.moe_ref(layer, cfg, x)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    assert rel <= MOE_REL and float(aux) == float(aux_ref), (err, rel)
+    log(f"  moe_capacity (dropless, capacity {MOE_TOKENS}) against moe_ref "
+        f"on layer 0's {cfg.moe.n_experts} full-width experts, "
+        f"{MOE_TOKENS} tokens: max |diff| {err:.3g}, relative {rel:.3g} "
+        f"(limit {MOE_REL}); aux equal  ok; "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    del params, layer
+    _free()
+    return {"moe_rel": rel}
+
+
+def phase_mla(models, configs, serve, smi) -> dict:
+    """deepseek-v3-671b at full width cut to one layer (MLA and the
+    256-expert MoE): bf16, FAMILY_TEXTS // 2 requests through the dense
+    engine (a paged engine raises, as in the reference), the step printed;
+    then in float32 alone on the card, the absorbed decode's logits
+    (chunked dense engine) against the materialized whole-sequence
+    forward's on the same tokens. The whole-sequence forward runs the MoE
+    with capacity factor E / k, so that its capacity is the token count and
+    it drops nothing, as decode does."""
+    import dataclasses
+    base = configs.get_config(MLA_ARCH).with_(n_layers=1)
+    cfg, params = _serving_model(models, configs, base)
+    try:
+        serve.ServeEngine(cfg, params, paged=True, n_slots=4, max_len=1024,
+                          device="cuda")
+        raise AssertionError("a paged MLA engine was built")
+    except NotImplementedError:
+        pass
+    eng = serve.ServeEngine(cfg, params, n_slots=4, max_len=1024,
+                            device="cuda")
+    eng.run_until_drained([("warm-up", [1, 2, 3, 4, 5], 2)])
+    step_s: list = []
+    _timed_serve(eng, step_s, profile_at=10**9, trace={})   # no profile
+    prompts = _family_prompts(cfg, FAMILY_TEXTS // 2, seed=5, lo=FAMILY_LO,
+                              hi=FAMILY_HI)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.run_until_drained([(f"d{i}", p, MAX_NEW)
+                                 for i, p in enumerate(prompts)])
+    elapsed = time.perf_counter() - t0
+    assert all(len(v) == MAX_NEW for v in out.values()) and len(out) == 4
+    step_ms = statistics.median(step_s) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = _weights_bound_ms(cfg, params)
+    log(f"  {len(prompts)} requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} prompt tokens, {MAX_NEW} new each, dense "
+        f"engine (4 slots, max_len 1024): {elapsed:.2f} s, {len(step_s)} "
+        f"steps, median step {step_ms:.2f} ms (host clock, synchronised), "
+        f"bound of a dropless step {bound_ms:.2f} ms; peak device memory "
+        f"{peak / 1e9:.2f} GB; a paged engine raises NotImplementedError  "
+        f"ok ({smi})")
+    del params, eng
+    _free()
+    cfg32, p32 = _serving_model(models, configs, base.with_(dtype="float32"),
+                                torch.float32)
+    prompts = _family_prompts(cfg32, N_EXACT, seed=6, lo=40, hi=64)
+    runs = phase_exactness(cfg32, p32, serve, prompts, variants=())
+    e = cfg32.moe
+    whole_cfg = cfg32.with_(moe=dataclasses.replace(
+        e, capacity_factor=e.n_experts / e.top_k))
+    rel = _whole_against_decode(models, cfg32, p32, prompts, runs,
+                                "reference", whole_cfg=whole_cfg)
+    del p32, runs
+    _free()
+    return {"step_ms": step_ms, "steps": len(step_s), "peak_bytes": peak,
+            "bound_ms": bound_ms, "logits_rel": rel, "elapsed_s": elapsed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -2763,10 +3062,41 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== 22. one gemma3-1b train step on the card and on the CPU, float32")
     phase_attn_exactness(fa, train_step_mod, configs, optim, tree)
+    _free()
+    t_family = time.perf_counter()
+    plain_serving = ([(fa, n) for n in FA_PLAIN]
+                     + [(fd, "flash_decode_ref"),
+                        (fd, "flash_decode_paged_ref"),
+                        (attention_mod, "chunked_attention")])
+    log(f"== 23. recurrentgemma-2b serving: KsaCluster.run_campaign("
+        f"serve_pipeline) at full width, bf16, dense flash decode ({smi})")
+    rg_served = phase_family_serving(
+        fd, models, configs, serve, KsaCluster, ResourceProfile, RG_ARCH,
+        dict(max_len=4096),
+        configs.get_config(RG_ARCH).layer_kinds().count("local"), 0,
+        plain_calls_on_card(plain_serving), smi)
+    log(f"== 24. recurrentgemma-2b exactness at full width in float32 ({smi})")
+    rg_exact = phase_rg_exactness(fa, models, configs, serve, smi)
+    log(f"== 25. moonshot-v1-16b-a3b serving: KsaCluster.run_campaign("
+        f"serve_pipeline) at full width and depth, bf16, paged flash "
+        f"decode; then exactness at full width cut to {MOE_EXACT_LAYERS} "
+        f"layers, float32 ({smi})")
+    moe_served = phase_family_serving(
+        fd, models, configs, serve, KsaCluster, ResourceProfile, MOE_ARCH,
+        dict(paged=True, page_size=64, max_len=1024), 0,
+        configs.get_config(MOE_ARCH).n_layers,
+        plain_calls_on_card(plain_serving), smi)
+    moe_exact = phase_moe_exactness(models, configs, serve, smi)
+    log(f"== 26. deepseek-v3-671b at full width cut to 1 layer (MLA and the "
+        f"256-expert MoE; its attention is the reference's own "
+        f"single-device chunked_attention, so no plain-version watch) "
+        f"({smi})")
+    mla = phase_mla(models, configs, serve, smi)
     t_end = time.perf_counter()
     log(f"command time: phases 1-6 {t_serve - t_start:.1f} s, phases 7-11 "
         f"{t_train - t_serve:.1f} s, phases 12-17 {t_attn - t_train:.1f} s, "
-        f"phases 18-22 {t_end - t_attn:.1f} s, all {t_end - t_start:.1f} s")
+        f"phases 18-22 {t_family - t_attn:.1f} s, phases 23-26 "
+        f"{t_end - t_family:.1f} s, all {t_end - t_start:.1f} s")
 
     kernels = [{
         "name": "writhe_map",
@@ -2797,13 +3127,19 @@ def main() -> int:
             ("flash_decode_paged", "gemma3_1b_paged",
              "src/repro/kernels/flash_decode.py:354")):
         at = fd_time[main_shape]
-        large = fd_time["large_" + ("paged" if "paged" in name else "dense")]
+        kind = "paged" if "paged" in name else "dense"
+        large = fd_time["large_" + kind]
+        # each serving path's run, its counts set to 0 just before it
+        by_path = {SERVE_ARCH: served["launches"][name],
+                   RG_ARCH: rg_served["launches"][name],
+                   MOE_ARCH: moe_served["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
             "replaces": replaces,
-            "launches": served["launches"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": fd_err[name],
             "ms": at["ms"],
             "plain_ms": at["plain_ms"],
@@ -2818,8 +3154,10 @@ def main() -> int:
             "host_us": at["host_us"],
             "max_abs_err_f32": fd_err[name + "_f32"],
             "large": large,
-            "stablelm": fd_time["stablelm_" + ("paged" if "paged" in name
-                                               else "dense")],
+            "stablelm": fd_time["stablelm_" + kind],
+            # G = 10: recurrentgemma-2b's ring and paged shapes
+            "recurrentgemma": fd_time["recurrentgemma_2b_" + (
+                "paged" if kind == "paged" else "ring")],
             "check": "pass",
         })
     kernels.append({
@@ -2918,6 +3256,14 @@ def main() -> int:
                               // ATTN_TRAIN["total_steps"]),
         "check": "pass",
     })
+    families = {RG_ARCH: {**{k: rg_served[k] for k in (
+                    "makespan_s", "tokens_per_s", "steps", "step_ms",
+                    "peak_bytes", "bound_ms")}, **rg_exact},
+                MOE_ARCH: {**{k: moe_served[k] for k in (
+                    "makespan_s", "tokens_per_s", "steps", "step_ms",
+                    "peak_bytes", "bound_ms")}, **moe_exact},
+                MLA_ARCH: mla}
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

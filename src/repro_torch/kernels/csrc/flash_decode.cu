@@ -28,8 +28,8 @@
 //
 // What bounds it on this card: the bytes of valid K and V, at 3.35 TB/s.
 // Each key costs 4 * G * D operations against 2 * D * elem bytes, at most
-// G <= 8 operations a byte, far below the fp32 CUDA-core ridge (about 20),
-// so tensor cores buy nothing. At the serving main path's sizes (gemma3-1b:
+// G <= 16 operations a byte, below the fp32 CUDA-core ridge (about 20), so
+// tensor cores buy nothing. At the serving main path's sizes (gemma3-1b:
 // 8 slots, one KV head, 512 ring keys or ~600 paged keys of 256 dims) the
 // bytes are a few MB, about a microsecond, so what rules is latency: how
 // many memory requests are in flight on how many SMs, and how long the
@@ -39,22 +39,30 @@
 // walking its keys tile after tile.
 //
 // What the design does about it:
-//  * Split-KV. A block takes (split, KV head, slot): a contiguous range of
-//    cache rows (dense) or a run of whole pages (paged). The wrapper picks
-//    the split count from shapes alone (S or n_pages, B, K and the SM
-//    count; never from positions, so it reads nothing back from the card):
-//    about four blocks an SM, at most 16 splits, and none where B * K
-//    already fills the card. Each block keeps the G query heads of its KV
-//    head together, so a K/V row is read once for all of them. A split
-//    whose rows lie wholly past q_pos, before the window or on unbound
-//    pages stops at once with an empty partial (m = NEG_INF, l = 0).
-//  * The merge runs in the same launch: the splits of a (slot, KV head) are
-//    one thread-block cluster (cudaLaunchKernelEx; more than 8 blocks with
-//    the non-portable size attribute). Each block leaves its partial
-//    (m, l, acc[G, Dv]) in fp32 in its shared memory; after a cluster
-//    barrier, block r merges a 1/n_split slice of the output from all the
-//    partials, read through distributed shared memory in split order, so
-//    the result is bit-identical whatever order the blocks run in. No
+//  * Split-KV. A block takes (split, KV head and head group, slot): a
+//    contiguous range of cache rows (dense) or a run of whole pages
+//    (paged). The wrapper picks the split count from shapes alone (S or
+//    n_pages, B, K, the head groups and the SM count; never from
+//    positions, so it reads nothing back from the card): about four blocks
+//    an SM, at most 16 splits, and none where the unsplit blocks already
+//    fill the card. Each block keeps up to GROUP_G = 8 query heads of its KV
+//    head together, so a K/V row is read once for all of them. A wider
+//    group (recurrentgemma-2b: 10 query heads on one KV head) is cut into
+//    ceil(G / 8) head groups of ceil(G / groups) heads, one block each,
+//    which read the same rows (the second read can hit L2): a block that
+//    held all 16 heads would keep 16 x 8 query and 16 x 8 accumulator
+//    floats a lane at RL = 32, more than the 255 registers a thread has,
+//    and spill in its inner loop. A split whose rows lie wholly past q_pos,
+//    before the window or on unbound pages stops at once with an empty
+//    partial (m = NEG_INF, l = 0).
+//  * The merge runs in the same launch: the splits of a (slot, KV head,
+//    head group) are one thread-block cluster (cudaLaunchKernelEx; more
+//    than 8 blocks with the non-portable size attribute). Each block
+//    leaves its partial (m, l, acc[G, Dv]) in fp32 in its shared memory;
+//    after a cluster barrier, block r merges a 1/n_split slice of the
+//    output from all the partials, read through distributed shared memory
+//    in split order, so the result is bit-identical whatever order the
+//    blocks run in. No
 //    workspace, no atomics; a second barrier keeps every partial alive
 //    until it is read.
 //  * Loads stay in flight: K and V tiles of 32 rows are staged with 16-byte
@@ -90,7 +98,8 @@ constexpr int TILE = 32;                   // rows per tile
 constexpr int WARP_ROWS = TILE / WARPS;    // rows each warp owns in a tile
 constexpr int NST = 3;                     // K/V stages in the ring
 constexpr int NMETA = NST + 2;             // position / page-entry tiles
-constexpr int MAX_G = 8;                   // query heads per KV head
+constexpr int MAX_G = 16;                  // query heads per KV head
+constexpr int GROUP_G = 8;                 // of them in one block
 constexpr int MAX_D = 256;                 // head dim of K and of V
 constexpr int MAX_SPLIT = 16;              // a cluster, as split_plan's
 constexpr int PORTABLE_CLUSTER = 8;
@@ -108,7 +117,7 @@ struct Params {
                       // contiguous, -1 = invalid / unbound
   void* out;          // (B, 1, K * G, Dv), contiguous
   int S;              // rows per slot (paged: n_pages * page_size)
-  int K, G, Dk, Dv;
+  int K, G, Dk, Dv;  // G: query heads per KV head
   int page_size, n_pages, paged;
   int page_shift;     // log2(page_size) when it is a power of two, else -1
   int split_rows, n_split;
@@ -119,6 +128,7 @@ struct Params {
   int bounded;  // dense: row index == position, stop at q_pos
   int vec;      // rows may be read with 16-byte loads
   int nvk, nvv; // 16-byte vectors per K / V row (smem rows padded to them)
+  int GH, GS;   // head groups per KV head, query heads per group
 };
 
 __host__ __device__ inline size_t up16(size_t x) {
@@ -326,12 +336,12 @@ struct Scatter {
 // all the blocks in rank (split) order; an empty split (l = 0) weighs 0. A
 // second barrier keeps every block's partial until all have read it.
 template <typename T>
-__device__ __forceinline__ void merge_cluster(const Params& p,
+__device__ __forceinline__ void merge_cluster(const Params& p, int G,
                                               float* part_ml, float* part_a,
                                               T* og, int rank) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int G = p.G, Dv = p.Dv, GD = G * Dv, ns = p.n_split;
+  const int Dv = p.Dv, GD = G * Dv, ns = p.n_split;
   const int slice = (GD + ns - 1) / ns;
   for (int k = threadIdx.x; k < slice && rank * slice + k < GD;
        k += THREADS) {
@@ -366,7 +376,8 @@ __device__ __forceinline__ void merge_cluster(const Params& p,
 }
 
 // RL lanes share a row (one 16-byte vector each, NC vectors when RL = 32
-// cannot cover the row); MAXG >= G query heads, the extra ones with q = 0.
+// cannot cover the row); MAXG >= the block's query heads (its head group),
+// the extra ones with q = 0.
 // The register cap keeps several blocks on an SM where G is small.
 template <typename T, int RL, int MAXG>
 __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
@@ -382,15 +393,22 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
   static_assert(WARP_ROWS % KPS == 0, "a warp's rows split into steps");
   static_assert(NC >= 1, "a lane holds at least one vector");
 
+  // Head groups (GH > 1) come only with G > GROUP_G, whose groups of at
+  // least 5 heads run the GROUP_G instantiation; the others keep one group
+  // a KV head at compile time (the group's offsets would hold registers,
+  // which the capped small-group instantiations spill)
+  constexpr bool GROUPED = MAXG == GROUP_G;
   const int sp = blockIdx.x;   // split, the block's rank in its cluster
-  const int h = blockIdx.y;    // KV head
+  const int h = GROUPED ? blockIdx.y / p.GH : blockIdx.y;  // KV head
+  const int g0 = GROUPED ? (blockIdx.y - h * p.GH) * p.GS : 0;  // 1st head
   const int b = blockIdx.z;    // slot
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gi = lane / RL;    // the warp's lane group
   const int li = lane % RL;    // lane within the group
-  const int G = p.G, Dv = p.Dv;
+  const int G = GROUPED ? min(p.GS, p.G - g0) : p.G;   // the block's heads
+  const int Dv = p.Dv;
 
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(sizeof(T), p.nvk, p.nvv, MAXG);
@@ -451,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
   if (n_t > 0) {
     const float scale2 = p.scale * LOG2E;
     float qr[MAXG][NC][VE];
-    const T* qg = static_cast<const T*>(p.q) + pair * G * p.Dk;
+    const T* qg = static_cast<const T*>(p.q) + (pair * p.G + g0) * p.Dk;
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
 #pragma unroll
@@ -658,7 +676,7 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
   __syncthreads();
 
   const int GD = G * Dv;
-  T* og = static_cast<T*>(p.out) + pair * GD;
+  T* og = static_cast<T*>(p.out) + (pair * p.G + g0) * Dv;
   for (int i = tid; i < GD; i += THREADS) {
     const int g = i / Dv;
     const int col = i - g * Dv;
@@ -671,7 +689,7 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
     else
       part_a[i] = a;
   }
-  if (p.n_split > 1) merge_cluster<T>(p, part_ml, part_a, og, sp);
+  if (p.n_split > 1) merge_cluster<T>(p, G, part_ml, part_a, og, sp);
 }
 
 // The attribute is raised once per device and kernel (a bit a device).
@@ -703,14 +721,14 @@ int launch(const Params& p, int B, cudaStream_t stream) {
     e = raise_once(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
                    &cluster_raised);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(p.n_split, p.K, B);
+  const dim3 grid(p.n_split, p.K * p.GH, B);
   if (p.n_split == 1) {
     decode_kernel<T, RL, MAXG><<<grid, THREADS, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.n_split;   // a (slot, KV head)'s splits
+  attr[0].val.clusterDim.x = p.n_split;   // a (slot, KV head, group)'s
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -727,10 +745,10 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 template <typename T, int RL>
 int by_g(const Params& p, int B, cudaStream_t stream) {
-  if (p.G <= 1) return launch<T, RL, 1>(p, B, stream);
-  if (p.G <= 2) return launch<T, RL, 2>(p, B, stream);
-  if (p.G <= 4) return launch<T, RL, 4>(p, B, stream);
-  return launch<T, RL, 8>(p, B, stream);
+  if (p.GS <= 1) return launch<T, RL, 1>(p, B, stream);
+  if (p.GS <= 2) return launch<T, RL, 2>(p, B, stream);
+  if (p.GS <= 4) return launch<T, RL, 4>(p, B, stream);
+  return launch<T, RL, GROUP_G>(p, B, stream);
 }
 
 template <typename T>
@@ -746,9 +764,13 @@ int by_width(Params p, int B, cudaStream_t stream) {
   return by_g<T, 32>(p, B, stream);
 }
 
-int dispatch(int dtype, const Params& p, int B, void* stream) {
+int dispatch(int dtype, Params p, int B, void* stream) {
+  // query heads in groups of at most GROUP_G, as even as they come
+  p.GH = (p.G + GROUP_G - 1) / GROUP_G;
+  p.GS = p.GH > 0 ? (p.G + p.GH - 1) / p.GH : 0;
   const bool shape_ok =
-      B >= 1 && B <= 65535 && p.S >= 1 && p.K >= 1 && p.K <= 65535 &&
+      B >= 1 && B <= 65535 && p.S >= 1 && p.K >= 1 &&
+      static_cast<long long>(p.K) * p.GH <= 65535 &&
       p.G >= 1 && p.G <= MAX_G && p.Dk >= 1 && p.Dk <= MAX_D && p.Dv >= 1 &&
       p.Dv <= MAX_D && p.split_rows >= 1 && p.n_split >= 1 &&
       p.n_split <= MAX_SPLIT &&
@@ -765,7 +787,8 @@ int dispatch(int dtype, const Params& p, int B, void* stream) {
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out share it). Strides are in
 // elements; the last axis of k and v is contiguous. The key rows split into
 // n_split <= 16 ranges of split_rows rows (the last may be shorter), one
-// cluster of n_split blocks a (slot, KV head). Returns cudaGetLastError()
+// cluster of n_split blocks a (slot, KV head, head group of at most
+// GROUP_G query heads; G <= MAX_G). Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int flash_decode_launch(
     int dtype, const void* q, const void* k, const void* v, const int* q_pos,
@@ -775,7 +798,7 @@ extern "C" int flash_decode_launch(
     float scale, int window, int bounded, int vec, void* stream) {
   Params p = {q, k, v, q_pos, k_pos, out, S, K, G, Dk, Dv, 1, 0, 0, 0,
               split_rows, n_split, k_s0, k_s1, k_s2, v_s0, v_s1, v_s2,
-              scale, window, bounded, vec, 0, 0};
+              scale, window, bounded, vec, 0, 0, 0, 0};
   return dispatch(dtype, p, B, stream);
 }
 
@@ -799,7 +822,7 @@ extern "C" int flash_decode_paged_launch(
   Params p = {q, pool_k, pool_v, q_pos, table, out, page_size * n_pages, K,
               G, Dk, Dv, page_size, n_pages, 1, shift,
               page_size * split_pages, n_split, k_s0, k_s1, k_s2, v_s0, v_s1,
-              v_s2, scale, window, 1, vec, 0, 0};
+              v_s2, scale, window, 1, vec, 0, 0, 0, 0};
   return dispatch(dtype, p, B, stream);
 }
 

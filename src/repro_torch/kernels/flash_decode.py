@@ -12,7 +12,9 @@ reference's XLA twins ``flash_decode_xla`` and ``flash_decode_paged_xla``,
 The kernels split each slot's key range over the blocks of a thread-block
 cluster and merge the blocks' partial softmax states by log-sum-exp in the
 same launch. How many splits is :func:`split_plan`'s choice, a pure
-function of shapes and the SM count.
+function of shapes and the SM count. A KV head's query heads go to one
+block in groups of at most ``GROUP_G`` (:func:`head_groups`), so a group
+of up to ``MAX_G`` query heads per KV head takes one or two blocks.
 
 The contract is the reference's. Ragged continuous batching is expressed by
 positions: ``q_positions`` (B,) is each slot's decode position, and for the
@@ -40,7 +42,8 @@ import threading
 import torch
 
 NEG_INF = -1e30
-MAX_G, MAX_D = 8, 256       # as in csrc/flash_decode.cu
+MAX_G, MAX_D = 16, 256      # as in csrc/flash_decode.cu
+GROUP_G = 8                 # query heads a block takes, as in the source
 TILE = 32                   # rows per tile, as in csrc/flash_decode.cu
 BLOCKS_PER_SM = 4           # the split aims at this many blocks an SM
 MAX_SPLIT = 16              # blocks in a cluster, as csrc/flash_decode.cu
@@ -138,6 +141,12 @@ def _window(window: int | None) -> int:
 # ---------------------------------------------------------------------------
 
 
+def head_groups(g: int) -> int:
+    """Blocks a KV head's ``g`` query heads take, as the kernel cuts them:
+    groups of at most ``GROUP_G`` heads."""
+    return -(-g // GROUP_G)
+
+
 def even_split(n_units: int, n: int) -> tuple[int, int]:
     """``n_units`` units in at most ``n`` runs of equal length but the last:
     returns (runs, units per run), no run empty."""
@@ -153,7 +162,8 @@ def split_plan(n_units: int, unit_rows: int, pairs: int,
 
     A unit is a tile of ``TILE`` rows (dense cache: ``ceil(S / TILE)``
     units) or a page of ``unit_rows`` rows (paged: ``n_pages`` units, so
-    splits fall on page boundaries). ``pairs`` is B * K. The plan aims at
+    splits fall on page boundaries). ``pairs`` is B * K times the head
+    groups (:func:`head_groups`): the blocks before splitting. It aims at
     ``BLOCKS_PER_SM * n_sm`` blocks, splits no further than about a tile a
     block and no more than ``MAX_SPLIT`` ways (a cluster), and does not
     split where the pairs alone reach that. It reads only shapes, never
@@ -234,14 +244,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(kp.shape)} do not fit B={b}, S={s}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        n, per = _plan(dev, -(-s // TILE), TILE, b * kh)
+        gh = head_groups(g)
+        n, per = _plan(dev, -(-s // TILE), TILE, b * kh * gh)
         _launch("flash_decode_launch", [
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
             b, s, kh, g, dk, dv, per * TILE, n, *k.stride()[:3],
             *v.stride()[:3], float(scale), _window(window), int(bounded),
             _vec(k, v), stream])
-    _count(flash_decode, (n, per, (n, kh, b)))
+    _count(flash_decode, (n, per, (n, kh * gh, b)))
     return out
 
 
@@ -366,14 +377,15 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
                          "must fit in 32 bits")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        n, per = _plan(dev, n_pages, page_size, b * kh)
+        gh = head_groups(g)
+        n, per = _plan(dev, n_pages, page_size, b * kh * gh)
         _launch("flash_decode_paged_launch", [
             _DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
             pool_v.data_ptr(), qp.data_ptr(), table.data_ptr(),
             out.data_ptr(), b, kh, g, dk, dv, page_size, n_pages,
             per, n, *pool_k.stride()[:3], *pool_v.stride()[:3],
             float(scale), _window(window), _vec(pool_k, pool_v), stream])
-    _count(flash_decode_paged, (n, per, (n, kh, b)))
+    _count(flash_decode_paged, (n, per, (n, kh * gh, b)))
     return out
 
 

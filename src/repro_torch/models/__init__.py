@@ -1,8 +1,10 @@
 """The model core of the port: configs, parameter specs, layers, attention
-and the transformer stack, for the ``attn``/``local`` layer kinds with a
-dense MLP, the Mamba-2 ``ssd`` kind and the stub ``audio_frames`` and
-``vit_patches`` frontends (``rglru``, MoE and MLA come with later slices;
-see ``ROADMAP.md``).
+and the transformer stack, for every config in ``repro_torch.configs``:
+the ``attn``/``local`` layer kinds (GQA or MLA), the Mamba-2 ``ssd`` and
+RG-LRU ``rglru`` kinds, dense-MLP and MoE FFNs, and the stub
+``audio_frames`` and ``vit_patches`` frontends. It exports what the
+reference's ``models`` package exports; the blocks live in their modules
+(``attention``, ``mla``, ``moe``, ``rglru``, ``ssd``).
 
 ``config.py`` is a verbatim copy of the reference's. Its ``use_pallas`` and
 ``kernel_interpret`` fields stay, since a copy stays as it is, but the port

@@ -1,21 +1,22 @@
 """The composable model stack.
 
-Port of ``repro/models/transformer.py`` for the ``attn``/``local`` layer
-kinds with a dense MLP and the Mamba-2 ``ssd`` kind (with an MLP only where
-the reference's ``_has_mlp`` rule gives one: never for ``d_ff = 0``), with
-the stub modality frontends: ``audio_frames`` (encoder-only, frames in
-place of tokens) and ``vit_patches`` (projected patches before the text).
-Layers are generated from ``cfg.layer_pattern`` cycled over ``n_layers``;
-the parameters and caches of the full periods are
-stacked on a leading ``layers`` axis, as in the reference, so one
+Port of ``repro/models/transformer.py``: the ``attn``/``local`` layer
+kinds (GQA attention, or MLA where ``cfg.mla`` is set), the Mamba-2 ``ssd``
+kind and the RG-LRU ``rglru`` kind, each with an FFN where the reference's
+``_has_mlp`` rule gives one (always for attention; for the recurrent kinds
+only when ``d_ff > 0``), a dense MLP or, where ``cfg.moe`` is set, the
+MoE; and the stub modality frontends: ``audio_frames`` (encoder-only,
+frames in place of tokens) and ``vit_patches`` (projected patches before
+the text). Layers are generated from ``cfg.layer_pattern`` cycled over
+``n_layers``; the parameters and caches of the full periods are stacked on
+a leading ``layers`` axis, as in the reference, so one
 :func:`repro_torch.convert.tree_to_torch` carries a JAX tree across. Where
 the reference runs ``lax.scan`` over that axis, the port runs a Python loop
 that indexes it. Remainder layers (``n_layers % period``) follow under
 ``"tail"``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the ``rglru`` kind (Queue 1, item 5), MoE and MLA (item 7), and ``dist``
-(item 8).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``dist`` (Queue 1, item 8). As in the reference, MLA has no paged cache.
 """
 from __future__ import annotations
 
@@ -27,23 +28,14 @@ from .attention import attention_block, attention_spec, init_kv_cache
 from .config import ModelConfig
 from .layers import (embed, embedding_spec, mlp, mlp_spec, rmsnorm,
                      rmsnorm_spec, torch_dtype, unembed)
+from .mla import init_mla_cache, mla_block, mla_spec
+from .moe import moe_block, moe_spec
 from .params import ParamSpec, stack_specs
+from .rglru import init_rglru_cache, rglru_block, rglru_spec
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
-_RECURRENT = "the rglru layer comes with the rest of the recurrent slice: " \
-             "ROADMAP.md Queue 1, item 5"
-_MOE_MLA = "MoE and MLA come with a later slice: ROADMAP.md Queue 1, item 7"
 _SHARDED = "sharded execution (dist) comes with the sharded slice: " \
            "ROADMAP.md Queue 1, item 8"
-
-
-def _check_supported(cfg: ModelConfig, kind: str | None = None) -> None:
-    if kind == "rglru":
-        raise NotImplementedError(_RECURRENT)
-    if kind is not None and kind not in ("attn", "local", "ssd"):
-        raise ValueError(f"unknown layer kind {kind}")
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(_MOE_MLA)
 
 
 def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -53,14 +45,20 @@ def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
 
 
 def block_spec(cfg: ModelConfig, kind: str) -> dict:
-    _check_supported(cfg, kind)
     d = cfg.d_model
-    spec: dict = {"norm1": rmsnorm_spec(d),
-                  "mix": ssd_spec(cfg) if kind == "ssd"
-                  else attention_spec(cfg)}
+    spec: dict = {"norm1": rmsnorm_spec(d)}
+    if kind in ("attn", "local"):
+        spec["mix"] = mla_spec(cfg) if cfg.mla is not None \
+            else attention_spec(cfg)
+    elif kind == "ssd":
+        spec["mix"] = ssd_spec(cfg)
+    elif kind == "rglru":
+        spec["mix"] = rglru_spec(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind}")
     if _has_mlp(cfg, kind):
         spec["norm2"] = rmsnorm_spec(d)
-        spec["ffn"] = mlp_spec(cfg)
+        spec["ffn"] = moe_spec(cfg) if cfg.moe is not None else mlp_spec(cfg)
     return spec
 
 
@@ -72,23 +70,38 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                 decode: bool = False,
                 pages: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
-    """One residual block. Returns (x, new_cache, aux_loss); the aux loss of
-    a dense MLP block is the Python float 0.0 (MoE blocks come later)."""
-    _check_supported(cfg, kind)
+    """One residual block. Returns (x, new_cache, aux_loss): the MoE's
+    router loss, a float32 scalar in the autograd graph, or the Python
+    float 0.0 for a block without a MoE."""
     if dist is not None:
         raise NotImplementedError(_SHARDED)
     aux = 0.0
     h = rmsnorm(params["norm1"], x, cfg.rms_eps)
-    if kind == "ssd":
+    if kind in ("attn", "local"):
+        if cfg.mla is not None:
+            y, new_cache = mla_block(params["mix"], cfg, h,
+                                     positions=positions, cache=cache,
+                                     cache_index=cache_index)
+        else:
+            y, new_cache = attention_block(params["mix"], cfg, h, kind=kind,
+                                           positions=positions, cache=cache,
+                                           cache_index=cache_index,
+                                           pages=pages)
+    elif kind == "ssd":
         y, new_cache = ssd_block(params["mix"], cfg, h, cache=cache)
+    elif kind == "rglru":
+        y, new_cache = rglru_block(params["mix"], cfg, h, cache=cache)
     else:
-        y, new_cache = attention_block(params["mix"], cfg, h, kind=kind,
-                                       positions=positions, cache=cache,
-                                       cache_index=cache_index, pages=pages)
+        raise ValueError(f"unknown layer kind {kind}")
     x = x + y
     if _has_mlp(cfg, kind):
         h = rmsnorm(params["norm2"], x, cfg.rms_eps)
-        x = x + mlp(params["ffn"], cfg, h)
+        if cfg.moe is not None:
+            f, aux = moe_block(params["ffn"], cfg, h, impl="capacity",
+                               dropless=decode)
+        else:
+            f = mlp(params["ffn"], cfg, h)
+        x = x + f
     return x, new_cache, aux
 
 
@@ -98,7 +111,6 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
     period_spec = {str(i): block_spec(cfg, k)
                    for i, k in enumerate(cfg.layer_pattern)}
     spec: dict = {
@@ -187,7 +199,6 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     Returns (logits (B, S, padded_vocab) over the text positions only for
     a VLM, caches or None, aux_loss).
     """
-    _check_supported(cfg)
     if dist is not None:
         raise NotImplementedError(_SHARDED)
     decode = caches is not None
@@ -218,7 +229,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if n_prefix:
         x = x[:, n_prefix:]  # loss/logits over text positions only (VLM)
-    aux_total = torch.tensor(aux_total, dtype=torch.float32)
+    # a MoE's aux stays in the graph (the router's gradient); a model
+    # without one gives a float32 zero
+    aux_total = aux_total.float() if isinstance(aux_total, torch.Tensor) \
+        else torch.tensor(aux_total, dtype=torch.float32)
     if return_hidden:
         return x, (caches if decode else None), aux_total
     logits = unembed(params["embed"], cfg, x)
@@ -238,7 +252,6 @@ def _stacked(tree: dict, n: int) -> dict:
 def _build_caches(cfg: ModelConfig, make) -> dict:
     """Cache tree in the stacked layout of :func:`forward`; ``make(kind)``
     builds one layer's cache on the ``meta`` device (shapes only)."""
-    _check_supported(cfg)
     out: dict = {}
     if cfg.n_periods > 0:
         out["periods"] = {str(i): _stacked(make(kind), cfg.n_periods)
@@ -254,6 +267,10 @@ def _cache_for(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """One layer's decode cache on the ``meta`` device."""
     if kind == "ssd":
         return init_ssd_cache(cfg, batch, dtype, "meta")
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, "meta")
+    if cfg.mla is not None:
+        return init_mla_cache(cfg, batch, max_len, dtype, "meta")
     return init_kv_cache(cfg, kind, batch, max_len, dtype, "meta")
 
 
@@ -288,8 +305,8 @@ def paged_layout(max_len: int, page_size: int, batch: int,
 
 def _paged_cache_for(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, *, page_size: int, n_pages: int) -> dict:
-    if kind == "ssd" or (kind == "local"
-                         and min(max_len, cfg.window_size) < max_len):
+    if kind in ("ssd", "rglru") or (
+            kind == "local" and min(max_len, cfg.window_size) < max_len):
         # ring buffers are already O(window), recurrent state O(1); keep
         # them dense.
         return _cache_for(cfg, kind, batch, max_len, dtype)
@@ -305,9 +322,12 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache tree with paged KV for the full-context attention
     layers: physical pools ``(n_pages, page_size, K, Dh)`` indexed through
     the page table that :func:`forward` takes as ``pages``. Ring (local)
-    and recurrent (ssd) caches keep their dense layout — they are already
-    O(window) / O(1) per slot. Page 0 is reserved as the trash page for
-    writes from unbound slots."""
+    and recurrent (ssd/rglru) caches keep their dense layout — they are
+    already O(window) / O(1) per slot. Page 0 is reserved as the trash page
+    for writes from unbound slots. MLA's latent caches have no paged
+    layout, in the reference either."""
+    if cfg.mla is not None:
+        raise NotImplementedError("paged KV cache with MLA latent caches")
     from repro_torch.convert import resolve_device
     dev = resolve_device(device)
     _, n_pages = paged_layout(max_len, page_size, batch, n_pages)

@@ -3,8 +3,10 @@
 for GQA groups 1, 2 and 4, window, ring positions, padded and empty lanes,
 paged), one with Dv != Dk, the edges of the kernels' split of the key range
 over blocks (a long sparse cache, a window whose ends fall inside splits,
-live pages separated by unbound ones, slots with no valid key), and the
-serving main path's shapes. All from numpy seeds; imports neither jax nor
+live pages separated by unbound ones, slots with no valid key), groups of
+10 and 16 query heads on one KV head of 256 dims (recurrentgemma-2b's, and
+the kernels' largest: two head groups a KV head), and the serving main
+paths' shapes. All from numpy seeds; imports neither jax nor
 the port, so the card tests and the smoke script run where jax is absent.
 
 A case is a dict: ``kind`` ("dense" | "paged"), float32 arrays ``q``
@@ -188,6 +190,32 @@ def _no_valid_key():
                   empty=(0, 1, 2))
 
 
+def _wide_group(g, kind):
+    """G query heads on one KV head of 256 dims: recurrentgemma-2b's group
+    (G = 10) or MAX_G (16), which the kernels cut into two head groups.
+    ``kind``: a dense bounded cache with ragged positions, a ring that has
+    wrapped (window 64) or a paged cache."""
+    rng = np.random.default_rng(20 + g)
+    b, h, d = 3, g, 256
+    if kind == "paged":
+        ps, pps, npg = 16, 6, 20
+        pool_k = rng.standard_normal((npg, ps, 1, d)).astype(np.float32)
+        pool_v = rng.standard_normal((npg, ps, 1, d)).astype(np.float32)
+        q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+        qpos = np.asarray([7, 50, 95], np.int32)
+        table = bind_pages(qpos, ps, pps, npg, np.random.RandomState(g))
+        return dict(kind="paged", q=q, k=pool_k, v=pool_v, qpos=qpos,
+                    table=table, window=None, empty=())
+    if kind == "ring":
+        q, k, v = _rand_qkv(rng, b, 64, h, 1, d)
+        t = np.asarray([100, 9, 64])
+        return _dense(q, k, v, t - 1, ring_kpos(t, 64), window=64,
+                      block_k=32, bounded=False)
+    q, k, v = _rand_qkv(rng, b, 96, h, 1, d)
+    qpos = [3, 47, 95]
+    return _dense(q, k, v, qpos, dense_kpos(qpos, 96), block_k=32)
+
+
 CASES = {
     **{f"causal_ragged_kh{kh}": (lambda kh=kh: _causal(kh))
        for kh in (4, 2, 1)},
@@ -201,6 +229,8 @@ CASES = {
     "window_inside_splits": _window_inside_splits,
     "paged_gaps": _paged_gaps,
     "no_valid_key": _no_valid_key,
+    **{f"group{g}_{kind}": (lambda g=g, kind=kind: _wide_group(g, kind))
+       for g in (10, 16) for kind in ("dense", "ring", "paged")},
 }
 
 
@@ -250,7 +280,8 @@ def oracle(case):
 
 
 MAIN_PATH = ("gemma3_1b_ring", "gemma3_1b_paged", "stablelm_dense",
-             "stablelm_paged")
+             "stablelm_paged", "recurrentgemma_2b_ring",
+             "recurrentgemma_2b_paged", "moonshot_v1_16b_a3b_paged")
 # the timed large shape: 64 slots x 8192 cached tokens at stablelm width
 # (4.3 GB of bf16 K/V), made on the card by chip_smoke.py
 LARGE_SHAPE = dict(b=64, s=8192, kh=32, g=1, d=64, page_size=64)
@@ -260,7 +291,13 @@ def main_path_cases(seed=0):
     """gemma3-1b (K=1, G=4, D=256): its ring layers' dense decode over a
     512-row window after ~700 tokens, and its global layers' paged decode
     over 64-token pages; stablelm-1.6b width (K=32, G=1, D=64): dense
-    (bounded) and paged. Eight slots, ragged positions 540-700."""
+    (bounded) and paged. Eight slots, ragged positions 540-700.
+    recurrentgemma-2b (K=1, G=10, D=256) as its serving phase runs it:
+    its local layers' 2048-row rings (max_len 4096, window 2048) at
+    positions 96-176, and paged over 64-token pages at the same positions
+    (max_len 1024). moonshot-v1-16b-a3b (K=16, G=1, D=128): paged over
+    64-token pages at those positions (max_len 1024), as its serving phase
+    runs it."""
     rng = np.random.default_rng(seed)
     b = 8
     qpos = rng.integers(540, 701, size=b).astype(np.int32)
@@ -275,6 +312,14 @@ def main_path_cases(seed=0):
     q, k, v = _rand_qkv(rng, b, 1024, 32, 32, 64)
     cases["stablelm_dense"] = _dense(q, k, v, qpos, dense_kpos(qpos, 1024))
     cases["stablelm_paged"] = _paged_main(rng, qpos, kh=32, h=32, d=64)
+    qpos = rng.integers(96, 177, size=b).astype(np.int32)
+    q, k, v = _rand_qkv(rng, b, 2048, 10, 1, 256)
+    cases["recurrentgemma_2b_ring"] = _dense(
+        q, k, v, qpos, ring_kpos(qpos + 1, 2048), window=2048, bounded=False)
+    cases["recurrentgemma_2b_paged"] = _paged_main(rng, qpos, kh=1, h=10,
+                                                   d=256)
+    cases["moonshot_v1_16b_a3b_paged"] = _paged_main(rng, qpos, kh=16,
+                                                     h=16, d=128)
     return cases
 
 

@@ -1,8 +1,9 @@
 """The CUDA flash-decode kernels against their plain PyTorch versions, on
-the card: every case in float32 (the split's edges included) and the
-serving main path's shapes in bf16, bit-identical over two calls, one
-launch and no host synchronisation a call, every cluster size from 1 to 16
-splits, and the large shape, which the plan does not split.
+the card: every case in float32 (the split's edges and groups of 10 and
+16 query heads on a KV head included) and the serving main paths' shapes
+in bf16 (recurrentgemma-2b's G = 10 among them), bit-identical over two
+calls, one launch and no host synchronisation a call, every cluster size
+from 1 to 16 splits, and the large shape, which the plan does not split.
 
 Marked ``cuda``: they skip where no CUDA device is present. The file imports
 no jax, so it runs on a GPU machine without the JAX reference:
@@ -87,8 +88,8 @@ def test_kernel_matches_plain_bf16_main_path(name, cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_raises_on_what_it_does_not_take(cuda_device):
-    q = torch.zeros(2, 1, 16, 64, device=cuda_device)
-    k = torch.zeros(2, 32, 1, 64, device=cuda_device)       # G = 16 > 8
+    q = torch.zeros(2, 1, 17, 64, device=cuda_device)
+    k = torch.zeros(2, 32, 1, 64, device=cuda_device)       # G = 17 > 16
     pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         fd.flash_decode(q, k, k, pos)
@@ -161,6 +162,7 @@ def test_kernel_call_does_not_synchronise(name, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8, 9, 16])
 @pytest.mark.parametrize("name", ["gemma3_1b_ring", "gemma3_1b_paged",
+                                  "recurrentgemma_2b_ring", "group10_paged",
                                   "window_inside_splits", "paged_gaps"])
 def test_every_cluster_size(name, n_split, cuda_device, monkeypatch):
     """The plan forced to n_split blocks a cluster (above 8 the non-portable
@@ -187,19 +189,20 @@ def test_every_cluster_size(name, n_split, cuda_device, monkeypatch):
 def test_last_plan_is_the_launched_one(name, cuda_device):
     """The wrapper records the plan it gave the kernel: split_plan's choice
     for the call's shapes and this card's SM count, and the grid of
-    (splits, KV heads, slots) blocks."""
+    (splits, KV heads x head groups, slots) blocks."""
     case = main_path_cases()[name]
     t = _inputs(case, cuda_device, torch.bfloat16)
     _call(case, t)
-    b, kh = case["q"].shape[0], case["k"].shape[2]
+    b, h, kh = case["q"].shape[0], case["q"].shape[2], case["k"].shape[2]
+    gh = fd.head_groups(h // kh)
     if case["kind"] == "paged":
         n_units, unit_rows = case["table"].shape[1], case["k"].shape[1]
     else:
         n_units, unit_rows = -(-case["k"].shape[1] // fd.TILE), fd.TILE
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    n, per = fd.split_plan(n_units, unit_rows, b * kh, sms)
+    n, per = fd.split_plan(n_units, unit_rows, b * kh * gh, sms)
     fn = fd.flash_decode_paged if case["kind"] == "paged" else fd.flash_decode
-    assert fn.last_plan == (n, per, (n, kh, b))
+    assert fn.last_plan == (n, per, (n, kh * gh, b))
 
 
 def _large(kind, device):

@@ -273,16 +273,23 @@ def test_split_plan_covers_every_row_once(n_units, unit_rows, pairs, n_sm):
 def test_split_plan_at_the_main_path_shapes():
     """gemma3-1b (8 slots, one KV head): 16 splits of one 32-row tile on the
     ring, 16 of one page on the paged cache, so 128 blocks on the H100's
-    132 SMs; the stablelm width (256 pairs) splits in 3; the large shape
-    (2048 pairs) does not split."""
+    132 SMs; the stablelm width (256 pairs) splits in 3; recurrentgemma-2b
+    (G = 10: two head groups a KV head, so 16 pairs) 16 ways, four tiles of
+    its 2048-row ring or one page a split; moonshot-v1-16b-a3b (128 pairs)
+    4 ways of 4 pages; the large shape (2048 pairs) does not split."""
     cases = main_path_cases()
     got = {}
     for name, case in cases.items():
         n_units, unit_rows, _ = _units(case)
-        b, kh = case["q"].shape[0], case["k"].shape[2]
-        got[name] = fd.split_plan(n_units, unit_rows, b * kh, H100_SMS)
+        b, h = case["q"].shape[0], case["q"].shape[2]
+        kh = case["k"].shape[2]
+        got[name] = fd.split_plan(n_units, unit_rows,
+                                  b * kh * fd.head_groups(h // kh), H100_SMS)
     assert got == {"gemma3_1b_ring": (16, 1), "gemma3_1b_paged": (16, 1),
-                   "stablelm_dense": (3, 11), "stablelm_paged": (3, 6)}
+                   "stablelm_dense": (3, 11), "stablelm_paged": (3, 6),
+                   "recurrentgemma_2b_ring": (16, 4),
+                   "recurrentgemma_2b_paged": (16, 1),
+                   "moonshot_v1_16b_a3b_paged": (4, 4)}
     c = LARGE_SHAPE
     pairs = c["b"] * c["kh"]
     assert fd.split_plan(c["s"] // fd.TILE, fd.TILE, pairs, H100_SMS) == (
@@ -295,6 +302,7 @@ def test_constants_match_the_cuda_source():
     """The wrapper's tile, split and shape limits are the kernel's."""
     src = (Path(fd.__file__).parent / "csrc" / "flash_decode.cu").read_text()
     for name, value in (("TILE", fd.TILE), ("MAX_SPLIT", fd.MAX_SPLIT),
-                        ("MAX_G", fd.MAX_G), ("MAX_D", fd.MAX_D)):
+                        ("MAX_G", fd.MAX_G), ("GROUP_G", fd.GROUP_G),
+                        ("MAX_D", fd.MAX_D)):
         found = re.search(rf"constexpr int {name} = (\d+);", src)
         assert found and int(found.group(1)) == value, name

@@ -1,7 +1,7 @@
 """The port's model core against the JAX reference, on the CPU.
 
 * ``model_spec`` of both packages has the same keys and shapes for every
-  config the port covers (full size and smoke), and the others raise.
+  config (full size and smoke).
 * A JAX ``init_params`` tree, carried across with ``tree_to_torch``, runs
   through the port's ``forward``: logits within atol 2e-5 of JAX's for
   whole-sequence, dense-decode, ring-decode and paged-decode, on the
@@ -41,9 +41,7 @@ from repro_torch.models.transformer import init_caches, init_paged_caches
 from repro_torch.serve import PageAllocator
 
 ATOL = 2e-5
-PORTED = ("stablelm_1_6b", "gemma3_1b", "gemma3_4b", "internlm2_1_8b",
-          "mamba2_130m", "hubert_xlarge", "internvl2_1b")
-NOT_YET = tuple(a for a in jax_configs.ARCHS if a not in PORTED)
+PORTED = tuple(jax_configs.ARCHS)
 
 
 def _spec_shapes(tree, leaf):
@@ -76,12 +74,6 @@ def test_model_spec_matches_reference(arch, size):
     assert _spec_shapes(model_spec(cfg), lambda s: s.axes) == jax_axes
     assert count_params(model_spec(cfg)) == \
         jax_count_params(jax_model_spec(jcfg))
-
-
-@pytest.mark.parametrize("arch", NOT_YET)
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_spec(configs.get_config(arch))
 
 
 def test_init_params_dtype_device_and_determinism():
@@ -323,11 +315,16 @@ def test_encoder_prefill_matches_reference(frontend_model):
 
 def test_mamba2_blocks_have_no_mlp():
     """The reference's ``_has_mlp`` rule: an ``ssd`` block with d_ff = 0
-    has no ``norm2``/``ffn``; attention blocks always have them."""
+    has no ``norm2``/``ffn``; attention blocks always have them (moonshot's
+    d_ff = 0 attention blocks get the MoE), and an ``rglru`` block with
+    d_ff > 0 has them."""
     from repro_torch.models import block_spec
     cfg = configs.get_config("mamba2_130m")
     assert set(block_spec(cfg, "ssd")) == {"norm1", "mix"}
     assert {"norm2", "ffn"} <= set(block_spec(configs.get_config(
         "stablelm_1_6b"), "attn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_spec(configs.get_config("recurrentgemma_2b"), "rglru")
+    rg = configs.get_config("recurrentgemma_2b")
+    assert rg.d_ff > 0
+    assert set(block_spec(rg, "rglru")) == {"norm1", "mix", "norm2", "ffn"}
+    moe = block_spec(configs.get_config("moonshot_v1_16b_a3b"), "attn")
+    assert "router" in moe["ffn"]

@@ -139,12 +139,13 @@ REQUESTS = {
        enumerate(_prompts(5, VOCAB, [6 + 3 * i for i in range(3)]))},
     ("stablelm_1_6b", "victim"): (_prompts(7, VOCAB, [6, 4])[0], 8),
     ("stablelm_1_6b", "other"): (_prompts(7, VOCAB, [6, 4])[1], 10),
-    **{(arch, rid): (p, 20) for arch in ("stablelm_1_6b", "gemma3_1b")
+    **{(arch, rid): (p, 20) for arch in ("stablelm_1_6b", "gemma3_1b",
+                                         "recurrentgemma_2b")
        for rid, p in zip("ab", _prompts(9, VOCAB, [4, 4]))},
     **{("stablelm_1_6b", f"q{i}"): (p, 5) for i, p in
        enumerate(_prompts(8, VOCAB, [4 + i for i in range(8)]))},
 }
-SEEDS = {"stablelm_1_6b": 0, "gemma3_1b": 2}
+SEEDS = {"stablelm_1_6b": 0, "gemma3_1b": 2, "recurrentgemma_2b": 5}
 
 
 @pytest.fixture(scope="module")
@@ -238,7 +239,8 @@ def test_evict_and_resume_mid_generation(reference):
     assert done["other"] == want["other"]
 
 
-@pytest.mark.parametrize("arch", ["stablelm_1_6b", "gemma3_1b"])
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "gemma3_1b",
+                                  "recurrentgemma_2b"])
 def test_stalled_slot_resumes_uncorrupted(reference, arch):
     """Page-pool exhaustion stalls one slot while the other keeps stepping.
     The stalled slot rides the step as a garbage lane; the port writes
