@@ -4,10 +4,14 @@
 Drives the port's main paths through ``repro_torch.cluster.KsaCluster``:
 the AlphaKnot campaign at the paper's batch size (4000 structures per task)
 on 512-point backbones, the serving decode path (tokenize -> generate ->
-postprocess) on gemma3-1b, recurrentgemma-2b and moonshot-v1-16b-a3b at
-full width, the fault-tolerant training campaigns on mamba2-130m and on
-gemma3-1b at full width, and one full-width layer of deepseek-v3-671b
-through the serving engine. It builds every CUDA kernel of those paths
+postprocess) on gemma3-1b, recurrentgemma-2b, moonshot-v1-16b-a3b and
+internvl2-1b at full width, the fault-tolerant training campaigns on
+mamba2-130m and on gemma3-1b at full width, one full-width layer of
+deepseek-v3-671b through the serving engine, the knot campaign on a
+two-site ``repro_torch.federation.FederatedCluster`` whose localize stage
+runs on the remote site's GPU worker, and hubert-xlarge's encoder and
+trainer and internvl2-1b's trainer at full width and depth. It builds
+every CUDA kernel of those paths
 from this checkout, holds each against its plain PyTorch version on the
 card, and times it beside its bound. Phases:
 
@@ -38,11 +42,13 @@ card, and times it beside its bound. Phases:
 8. flash-decode kernels against their plain versions on the card: the
    cases of tests/test_serve.py and the split's edges in float32 at atol
    2e-5 (empty lanes exactly zero; groups of 10 and 16 query heads on a
-   KV head among them), then the serving paths' shapes in bf16 against the
+   KV head among them, and 7 on each of two KV heads of 64, internvl2-1b's
+   group), then the serving paths' shapes in bf16 against the
    plain version in float32 on the same bf16 inputs at 2e-2; every call
    bit-identical to a second one;
 9. flash-decode timing at the serving paths' shapes (gemma3-1b, stablelm
-   width, recurrentgemma-2b's G = 10) and at B=64 x 8192 keys
+   width, recurrentgemma-2b's G = 10, moonshot-v1-16b-a3b's paged shape,
+   internvl2-1b's G = 7, D = 64) and at B=64 x 8192 keys
    (stablelm width), each call queued behind a spin on the card so that
    its device time alone is timed: kernel, plain version, one
    ``scaled_dot_product_attention`` call as the yardstick, and the bound,
@@ -73,9 +79,11 @@ card, and times it beside its bound. Phases:
    fp32 master, batch 8 x 2048, a ``TrainCampaign`` of 24 steps in 3 chunks
    of 8 on a GPU worker of ``KsaCluster``: exactly 24 forward and 24
    backward SSD launches per step, no call of a plain version on a CUDA
-   tensor, finite losses, a checkpoint at step 24; step time, tokens/s,
-   checkpoint save and restore times and sizes, device memory, device busy
-   share and device ms a step by kernel;
+   tensor, finite losses, a checkpoint at step 24, the memory resident at
+   every step of chunks 2 and 3 within 1% of chunk 1's last; step time,
+   tokens/s, checkpoint save and restore times and sizes, device memory.
+   Then the step apart, as phase 21's (3 steps, the same counts, device
+   busy share and device ms a step by kernel);
 16. recovery at full width: 8 steps in 2 chunks of 4 with the agent crashed
    in chunk 2; the watchdog resubmits; 24 forward and 24 backward SSD
    launches for every step run and no plain-version call on a CUDA tensor;
@@ -95,7 +103,11 @@ card, and times it beside its bound. Phases:
    and local, stablelm-1.6b, hubert-xlarge, internvl2-1b) in float32
    against the plain versions in float32 (the backward against float64
    autograd, 4e-5) and in bf16 against them (the backward also by its
-   relative norm error, 5e-3 a tensor), twice bit-identical forward and backward, and
+   relative norm error, 5e-3 a tensor), twice bit-identical forward and backward,
+   hubert-xlarge's bidirectional shape at S = 32768 (B = 1, the forward
+   and its log-sum-exp in bf16 against the plain versions in float32 on
+   every row, the output also by its relative norm error, 5e-3, twice
+   bit-identical), and
    the autograd function's gradients against autograd through the plain
    version (1e-5), one backward launch each;
 20. flash-attention timing at the gemma3-1b global and local shapes of the
@@ -103,14 +115,19 @@ card, and times it beside its bound. Phases:
    kernel, its earlier fp32 FMA design, the plain version,
    ``scaled_dot_product_attention`` as the yardstick and the bound; the
    backward kernel, its plain version, SDPA's backward and its bound;
-21. the attention training main path: gemma3-1b at full width, bf16 params
-   with an fp32 master, batch 2 x 4096, a ``TrainCampaign`` of 8 steps in 2
-   chunks of 4 on a GPU worker: exactly 26 forward and 26 backward
-   flash-attention launches per step, no call of a plain version on a CUDA
-   tensor and no SSD launch, finite losses, a checkpoint at step 8; step
-   time, tokens/s, checkpoint save and restore, device memory (held
-   before the campaign, resident at each step's start, peak), device busy
-   share and kernels a step;
+21. the attention training main path: gemma3-1b at full width cut to one
+   5:1 period (6 layers: 5 local, 1 global), bf16 params with an fp32
+   master, batch 2 x 4096, a ``TrainCampaign`` of 8 steps in 2 chunks of
+   4 on a GPU worker, the second restoring the first's checkpoint: exactly
+   6 forward and 6 backward flash-attention launches per step, no call of
+   a plain version on a CUDA tensor and no SSD launch, finite losses, a
+   checkpoint at step 8, the memory resident at every step of chunk 2
+   within 1% of chunk 1's last; step time, tokens/s, checkpoint save and
+   restore, device memory (held before the campaign, resident at each
+   step's start, peak). Then the full 26-layer step apart: 3
+   ``make_train_step`` steps after a warm-up, exactly 26 + 26 launches a
+   step, no plain version; the median step, tokens/s, peak memory, the
+   operations bound, device ms and kernels a step;
 22. one train step of gemma3-1b at full width cut to 2 layers (one local,
    one global) in float32 on the card and on the CPU, through both
    kernels: loss, grad norm and updated params agree;
@@ -135,10 +152,33 @@ card, and times it beside its bound. Phases:
    requests through the dense engine in bf16 (a paged engine raises, as in
    the reference), the step beside the weights bound; in float32 the
    absorbed decode's logits against the materialized whole-sequence
-   forward's (the MoE there dropless too), relative 2e-4.
+   forward's (the MoE there dropless too), relative 2e-4;
+27. the knot campaign of phase 6 on a ``FederatedCluster``: home site
+   ``edge`` (CPU workers), remote site ``hpc`` (CPU workers and one GPU
+   worker) behind a ``WanLink`` of 10 ms and 500 Mbit/s, the localize
+   stage pinned to ``hpc`` and its GPU class, the screen spilling on
+   backlog: processed, kept, knotted and cores equal to phase 6's, every
+   localize task completed at home by a ``bridge-hpc-`` relay and done in
+   the ``hpc`` monitor on its GPU worker, writhe launches at least the
+   tasks with work, site-labelled metrics of both sites; the makespan,
+   each stage's queue, run and wall seconds, the tasks each bridge
+   relayed, and the completed leases by site;
+28. hubert-xlarge at full width and depth (48 bidirectional layers, D =
+   80) in bf16: three ``make_prefill_step`` calls on 1 x 32768 frames
+   (exactly 48 flash-attention launches a call, no plain version on the
+   card, finite logits) beside the operations bound; then three train
+   steps at 2 x 4096 frames (48 + 48 launches a step) and one float32
+   step at full width cut to 2 layers on the card and on the CPU;
+29. internvl2-1b at full width and depth (24 layers, 14 heads on 2 KV
+   heads of 64: G = 7) in bf16 served as in 23 (exactly 24 dense
+   flash-decode launches and no paged one a step) beside the weights
+   bound; at full width cut to 4 layers in float32 the dense and paged
+   flash engines' tokens equal the chunked engine's; three train steps
+   at 2 x 4096 text tokens and 256 patches (24 + 24 launches a step) and
+   the float32 2-layer step on the card and on the CPU.
 
 The last four lines of its output are the families line (JSON: phases
-23-26), the kernels line (JSON), the card's name and power limit as
+21 and 23-29), the kernels line (JSON), the card's name and power limit as
 nvidia-smi gives them, and the result line (JSON).
 It exits non-zero, and prints no result, when CUDA is unavailable, when the
 repository's sources are missing, or when any phase fails.
@@ -175,6 +215,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -586,7 +627,7 @@ def phase_breakdown(knots, writhe) -> dict:
     return peaks
 
 
-def phase_main_path(knots, writhe, KsaCluster) -> int:
+def phase_main_path(knots, writhe, KsaCluster) -> dict:
     ids = list(range(CAMPAIGN))
     writhe.writhe_map.launches = 0         # count only the main path's run
     with KsaCluster(workers=1, gpu_workers=1) as c:
@@ -635,7 +676,7 @@ def phase_main_path(knots, writhe, KsaCluster) -> int:
     assert cores == agg["cores"], "knot cores differ"
     log(f"  campaign == flat baseline: {len(knotted)} knotted, "
         f"{len(cores)} cores  ok")
-    return launches
+    return {"launches": launches, "final": agg, "elapsed_s": res.elapsed_s}
 
 
 # -- the serving decode path (phases 7-11) ------------------------------------
@@ -1802,33 +1843,18 @@ def _gpu_cluster(KsaCluster):
                       agent_kw=dict(heartbeat_interval_s=0.2))
 
 
-def _profile_training(train_step_mod, trainer, data, cfg, run) -> dict | None:
-    """A fresh state drawn on the card, one warm-up step, then
-    PROFILE_TRAIN_STEPS steps traced with torch.profiler. Done outside the
-    campaign: stopping the profiler parses ~9000 host ops a step while
-    holding the GIL, which would starve the agents' loops."""
-    ocfg = trainer._ocfg_from_params({})
-    state = train_step_mod.init_train_state(
-        cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    step = train_step_mod.make_train_step(cfg, ocfg)
-    first = run["total_steps"]
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
-        cfg, 0, s, batch=run["batch"], seq=run["seq"]).items()}
-        for s in range(first, first + 1 + PROFILE_TRAIN_STEPS)]
-    state, _ = step(state, batches[0])
-    torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        t0 = time.perf_counter()
-        for b in batches[1:]:
-            state, _ = step(state, b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    del state, batches
-    torch.cuda.empty_cache()
-    return _device_share({"prof": prof, "wall": wall}, PROFILE_TRAIN_STEPS)
+@contextlib.contextmanager
+def _depth_cut(trainer, layers):
+    """While the block runs, every train chunk builds its full-width config
+    with ``layers`` layers (the chunk's params name the arch alone; None
+    leaves the depth as published)."""
+    full = trainer._cfg_from_params
+    if layers:
+        trainer._cfg_from_params = lambda p: full(p).with_(n_layers=layers)
+    try:
+        yield
+    finally:
+        trainer._cfg_from_params = full
 
 
 def _gpu_worker(c, ResourceProfile, run):
@@ -1851,10 +1877,11 @@ def _describe(cfg, run) -> str:
                f"head_dim {cfg.ssm.head_dim}, {cfg.ssd_heads} SSD heads, "
                f"d_conv {cfg.ssm.d_conv}, chunk {cfg.ssm.chunk_size}")
     else:
-        mix = (f"{kinds.count('local')} local with window "
-               f"{cfg.window_size}, {kinds.count('attn')} global; "
-               f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV head(s) of "
-               f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+        mix = (f"{len(kinds)} bidirectional" if cfg.encoder_only else
+               f"{kinds.count('local')} local with window "
+               f"{cfg.window_size}, {kinds.count('attn')} global")
+        mix += (f"; {cfg.n_heads} heads on {cfg.n_kv_heads} KV head(s) of "
+                f"{cfg.head_dim}, d_ff {cfg.d_ff}")
     return (f"{cfg.name}: {cfg.n_layers} layers ({mix}), d_model "
             f"{cfg.d_model}, vocab {cfg.vocab_size}, "
             f"{'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
@@ -1902,17 +1929,25 @@ def _run_campaign(camp, c, run) -> dict:
 def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
                    configs, KsaCluster, ResourceProfile, record: dict,
                    workdir: Path, plain_watch=None) -> dict:
-    """A TrainCampaign at full width on a GPU worker. ``counted`` maps each
+    """A TrainCampaign at full width on a GPU worker (its depth cut to
+    ``run["layers"]`` if given). ``counted`` maps each
     kernel's name to (its wrapper, the wrapper's count attribute, launches
     expected per step): every count is set to 0 just before the campaign
     and read just after. ``plain_watch``, if given, counts calls of the
-    plain versions on CUDA tensors during the campaign (it must see none)."""
+    plain versions on CUDA tensors during the campaign (it must see none).
+    The memory resident at every step of a chunk that restored a checkpoint
+    must equal chunk 1's at its last step within RESIDENT_REL (a restored
+    state kept alive beside the new one would double it). The step is
+    timed and traced apart, outside the campaign (phase_train_steps)."""
     cfg = configs.get_config(run["arch"])
+    if run.get("layers"):
+        cfg = cfg.with_(n_layers=run["layers"])
     tokens_per_step = run["batch"] * run["seq"]
     log(f"  {_describe(cfg, run)}")
     for k in record:
         record[k].clear()
-    with _gpu_cluster(KsaCluster) as c:
+    with _gpu_cluster(KsaCluster) as c, \
+            _depth_cut(trainer, run.get("layers")):
         _gpu_worker(c, ResourceProfile, run)
         camp = _campaign(trainer, c, workdir, run)
         torch.cuda.synchronize()
@@ -1963,28 +1998,15 @@ def phase_training(run, counted, trainer, train_step_mod, ckpt_mod, data,
             f"GB on disk ({size / sec / 1e6:.0f} MB/s)")
     log(f"  checkpoint restores: {[round(x, 2) for x in record['restores']]} "
         f"s; checkpoint at step {latest[0]}: {latest[1].split('/')[-1]}")
-    share = _profile_training(train_step_mod, trainer, data, cfg, run)
-    if share is None or share["busy"] is None:
-        log("  torch.profiler: no device time recorded (busy share not "
-            "measured)")
-    else:
-        share["busy_of_median"] = share["device_ms_per_step"] / step_ms
-        log(f"  torch.profiler over {PROFILE_TRAIN_STEPS} steps: "
-            f"{share['device_ms_per_step']:.2f} ms of device time a step, "
-            f"{share['kernels']:.0f} kernels a step; device busy "
-            f"{share['busy_of_median']:.1%} of the median untraced step "
-            f"({share['busy']:.1%} of the traced steps' "
-            f"{share['wall_ms_per_step']:.2f} ms); device ms a step by "
-            f"kernel:")
-        for name, ms in share["top"]:
-            log(f"    {ms:8.4f}  {name[:90]}")
-        mine = [(re.search(r"\w+_kernel", n).group(0), ms)
-                for n, ms in share["by_kernel"]
-                if re.search(r"(ssd|flash)_\w+_kernel", n)]
-        log("  the port's kernels, device ms a step: " + (", ".join(
-            f"{n} {ms:.4f}" for n, ms in mine) or "none recorded"))
+    chunk = run["chunk_steps"]
+    base = record["resident"][chunk - 1]
+    rel = max(abs(x - base) / base for x in record["resident"][chunk:])
+    assert rel <= RESIDENT_REL, (base, record["resident"])
+    log(f"  resident at every step of the restored chunks within {rel:.2%} "
+        f"of chunk 1's at its last step ({base / 1e9:.3f} GB; limit "
+        f"{RESIDENT_REL:.0%})  ok")
     return {"launches": launches, "losses": losses, "makespan_s": makespan,
-            "step_ms": step_ms, "device": share, "saves": list(record["saves"]),
+            "step_ms": step_ms, "saves": list(record["saves"]),
             "restores": list(record["restores"]), "peak_bytes": peak,
             "held_bytes": held, "resident_bytes": list(record["resident"])}
 
@@ -2186,14 +2208,28 @@ FA_GRAD_ATOL_MODEL = 4e-5
 # absolute floor is of the order of a typical |grad| on long rows); 2.35e-3
 # measured on every shape, about what rounding the outputs to bf16 costs
 FA_BWD_REL_BF16 = 5e-3
-# gemma3-1b at full width: 14 GB of state (bf16 params, fp32 master, m, v);
-# a chunk's host memory holds a copy of it plus the shard buffers of its
-# checkpoint while they are compressed. The batch is cut from the
-# train_4k shape's 256 sequences to two, which one card holds. Two chunks:
-# the second restores the first's 12.7 GB checkpoint and trains at the
-# card's peak, which the 1.6 GB mamba2 state of phases 15-16 never reaches.
+# the bf16 forward at S = 32768, per tensor: ||kernel - plain fp32|| over
+# ||plain fp32||. There the softmax over 32768 keys is nearly uniform and a
+# typical |out| is below 0.01, so the per-element limit FA_ATOL_BF16 is
+# twice what it compares or more; the norm holds the V side (a tile of 64
+# V rows skipped moves it by about 4e-2, one read from the wrong rows by
+# about 7e-2, on N(0, 1) inputs at D = 80). Rounding the output to bf16
+# alone costs about 1.7e-3.
+FA_LONG_REL_BF16 = 5e-3
+# gemma3-1b at full width, its depth cut to one whole 5:1 period (5 local
+# layers, 1 global): 0.46 B parameters, of which the tied 262144 x 1152
+# table 0.30 B; 6.4 GB of state (bf16 params, fp32 master, m, v). A chunk's
+# host memory holds a copy of it plus the shard buffers of its checkpoint
+# while they are compressed. The batch is cut from the train_4k shape's 256
+# sequences to two. Two chunks: the second restores the first's checkpoint.
+# The full 26-layer step is timed apart, outside the campaign
+# (phase_train_steps).
 ATTN_TRAIN = dict(arch=ATTN_ARCH, batch=2, seq=4096, total_steps=8,
-                  chunk_steps=4, mem_mb=65536)
+                  chunk_steps=4, mem_mb=65536, layers=6)
+# the memory resident at each step of a restored chunk against chunk 1's at
+# its last step (chunk 1's first step may precede the card's lazily made
+# workspaces): a restored state kept alive beside the step's would double it
+RESIDENT_REL = 0.01
 FA_TIMED = ("gemma3_1b_global", "gemma3_1b_local", "stablelm_1_6b")
 
 
@@ -2436,6 +2472,9 @@ def phase_fa_check(fa, fc) -> dict:
         del q, k, v, got, lse, g, grads, want_g, plain
         torch.cuda.empty_cache()
 
+    for name, shape in fc.LONG_SHAPES.items():
+        main_err[name] = _fa_long_check(fa, name, shape)
+
     for name, case in (("window 40", fc.random_case(31, 2, 96, 96, 6, 2, 32,
                                                      window=40)),
                        ("causal, D 80", fc.random_case(32, 1, 70, 70, 4, 4,
@@ -2458,6 +2497,43 @@ def phase_fa_check(fa, fc) -> dict:
     return {"max_abs_err": max(err, *main_err.values()), "f32_err": err,
             "main_err": main_err, "bwd_f32_err": bwd_err,
             "bwd_main_err": main_bwd_err}
+
+
+def _fa_long_check(fa, name, shape) -> float:
+    """The forward kernel at a long sequence in bf16 (output and
+    log-sum-exp) against the plain versions in float32 on the same bf16
+    inputs, every query row; twice bit-identical."""
+    kw = dict(causal=shape["causal"], window=shape["window"])
+    q, k, v = fa_model_inputs(shape, seed=5)
+    got, lse = fa.flash_attention_forward(q, k, v, **kw)
+    again, lse2 = fa.flash_attention_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse2), \
+        "forward kernel not deterministic"
+    del again, lse2
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(lse).all())
+    plain = [t.float() for t in (q, k, v)]
+    want = fa.flash_attention_plain(*plain, **kw)
+    torch.testing.assert_close(got.float(), want, atol=FA_ATOL_BF16,
+                               rtol=FA_ATOL_BF16)
+    err = float((got.float() - want).abs().max())
+    rel = _rel_norm([got], [want], FA_LONG_REL_BF16)
+    typical = float(want.abs().median())
+    del want
+    want_lse = fa.flash_attention_lse_plain(*plain[:2], **kw)
+    torch.testing.assert_close(lse, want_lse, atol=FA_LSE_ATOL,
+                               rtol=FA_LSE_ATOL)
+    lse_err = float((lse - want_lse).abs().max())
+    log(f"  {name:<17} B={shape['b']} S={shape['s']} H={shape['h']} "
+        f"K={shape['kh']} D={shape['d']} causal={shape['causal']}, bf16, "
+        f"forward: max |kernel - plain fp32| {err:.3g} (tol {FA_ATOL_BF16:g}"
+        f"; median |out| {typical:.3g}), ||kernel - plain fp32|| / ||plain|| "
+        f"{rel:.3g} (limit {FA_LONG_REL_BF16:g}), lse {lse_err:.3g} (tol {FA_LSE_ATOL:g}) over all "
+        f"{shape['b'] * shape['h'] * shape['s']} rows; lse buffer "
+        f"{tuple(lse.shape)}; two runs bit-identical  ok")
+    del q, k, v, got, lse, want_lse, plain
+    torch.cuda.empty_cache()
+    return err
 
 
 def attention_bound(b, sq, sk, h, kh, d, causal, window, elem,
@@ -2646,19 +2722,29 @@ def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
     """gemma3-1b at full width cut to 2 layers, one local and one global,
     float32, one train step of batch 2 x 768 (past the 512-key window) on
     the card and on the CPU (TF32 off)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get_config(ATTN_ARCH).with_(
         n_layers=2, layer_pattern=("local", "attn"), dtype="float32")
+    rng = np.random.RandomState(6)
+    tok = rng.randint(0, cfg.vocab_size, (2, 769))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(tok[:, 1:].astype(np.int32))}
+    return _train_step_card_vs_cpu(fa, train_step_mod, optim, tree, cfg,
+                                   batch, "batch 2 x 768")
+
+
+def _train_step_card_vs_cpu(fa, train_step_mod, optim, tree, cfg, batch,
+                            what) -> dict:
+    """One float32 train step of ``cfg`` on ``batch`` (CPU tensors) on the
+    card and on the CPU (TF32 off), from the same state (seed 3): loss and
+    grad norm within 1e-5 relative, updated params within 1e-5; the card's
+    step launches the forward and backward kernels once a layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # eps as in tests/test_torch_train.py and phase 17
     ocfg = optim.OptimizerConfig(lr=1e-3, eps=1e-5, warmup_steps=0,
                                  schedule="constant", weight_decay=0.1)
     state = train_step_mod.init_train_state(
         cfg, ocfg, torch.Generator().manual_seed(3), "cpu")
-    rng = np.random.RandomState(6)
-    tok = rng.randint(0, cfg.vocab_size, (2, 769))
-    batch = {"tokens": torch.from_numpy(tok[:, :-1].astype(np.int32)),
-             "labels": torch.from_numpy(tok[:, 1:].astype(np.int32))}
     step = train_step_mod.make_train_step(cfg, ocfg)
     on_card = tree.tree_map(lambda t: t.cuda(), state)
     before = fa.flash_attention.launches, fa.flash_attention.bwd_launches
@@ -2666,8 +2752,9 @@ def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
     got, gm = step(on_card, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
+    n = cfg.n_layers
     assert (fa.flash_attention.launches, fa.flash_attention.bwd_launches) \
-        == (before[0] + 2, before[1] + 2), "the card's step skipped a kernel"
+        == (before[0] + n, before[1] + n), "the card's step skipped a kernel"
     t0 = time.perf_counter()
     want, wm = step(state, batch)
     t_cpu = time.perf_counter() - t0
@@ -2681,8 +2768,8 @@ def phase_attn_exactness(fa, train_step_mod, configs, optim, tree) -> dict:
         if e > worst:
             worst, where = e, name
     assert worst <= 1e-5, (worst, where)
-    log(f"  {cfg.name} cut to 2 layers {cfg.layer_pattern}, float32, batch 2 "
-        f"x 768: loss card {float(gm['loss']):.6f} CPU "
+    log(f"  {cfg.name} cut to {n} layers {cfg.layer_kinds()}, float32, "
+        f"{what}: loss card {float(gm['loss']):.6f} CPU "
         f"{float(wm['loss']):.6f} (|diff| {loss_err:.3g}, limit 1e-5 "
         f"relative); grad norm {float(wm['grad_norm']):.6g}, |diff| "
         f"{gn_err:.3g} (limit 1e-5 relative); updated params max |card - "
@@ -2767,8 +2854,9 @@ def phase_family_serving(fd, models, configs, serve, KsaCluster,
                            n_dense=n_dense, n_paged=n_paged,
                            plain_watch=plain_watch)
     served["bound_ms"] = bound_ms = _weights_bound_ms(cfg, params)
-    log(f"  a dropless decode step reads every weight but the token table "
-        f"once: bound {bound_ms:.2f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s "
+    log(f"  a (dropless) decode step reads every weight but the token "
+        f"table and a frontend once: bound {bound_ms:.2f} ms at "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s "
         f"against the median step {served['step_ms']:.2f} ms ({smi})")
     del params
     _free()
@@ -2777,12 +2865,15 @@ def phase_family_serving(fd, models, configs, serve, KsaCluster,
 
 def _weights_bound_ms(cfg, params) -> float:
     """Bytes of every parameter a decode step reads (all but the token
-    embedding's table, of which it gathers 8 rows; the unembedding whole),
-    over the card's memory rate."""
+    embedding's table, of which it gathers 8 rows, and a frontend; the
+    unembedding whole), over the card's memory rate."""
     n = sum(p.numel() * p.element_size() for p in _leaves(params))
     table = params["embed"]["embedding"]
     if not cfg.tie_embeddings:
         n -= table.numel() * table.element_size()
+    # a frontend (patches, frames) runs on the prompt's inputs, not a step's
+    n -= sum(p.numel() * p.element_size()
+             for p in _leaves(params.get("frontend", {})))
     return n / HBM_BYTES_S * 1e3
 
 
@@ -2910,6 +3001,332 @@ def phase_mla(models, configs, serve, smi) -> dict:
             "bound_ms": bound_ms, "logits_rel": rel, "elapsed_s": elapsed}
 
 
+# -- the federation, and the encoder and VLM families (phases 27-29) ----------
+
+HUBERT_ARCH, VLM_ARCH = "hubert_xlarge", "internvl2_1b"
+# the prefill_32k cell's sequence, its batch cut from 32 to 1
+ENC_BATCH, ENC_SEQ, ENC_RUNS = 1, 32768, 3
+# the train_4k cell's sequence, its batch cut from 256 to two, as phase 21
+FAMILY_TRAIN = dict(batch=2, seq=4096)
+TRAIN_STEPS = 3                     # timed, after one warm-up step
+EXACT_TRAIN = dict(batch=2, seq=768)  # the float32 card-against-CPU step
+VLM_EXACT_LAYERS = 4                # internvl2-1b's depth in its token check
+
+
+def model_ops(cfg, params, b: int, s_text: int, n_prefix: int = 0,
+              train: bool = False) -> float:
+    """Operations of one forward over b sequences of n_prefix frontend
+    positions (patches) and s_text positions, or of a train step (train):
+    every weight product at 2 operations a weight a position (the layers'
+    on every position; the frontend's on its inputs: every frame of an
+    audio model, the patches of a VLM; the unembedding's on the text), the
+    attention products over the live (query head, key) pairs as
+    attention_bound counts them (4 D forward, 10 D backward); an SSD
+    layer's scan is not counted. A backward doubles the weight products
+    (input and weight gradients)."""
+    def weights(tree) -> int:
+        return sum(weights(v) if isinstance(v, dict) else v.numel()
+                   for k, v in tree.items()
+                   if isinstance(v, dict) or k.startswith("w"))
+    s = n_prefix + s_text
+    emb = params["embed"]
+    unembed = emb["unembed"] if "unembed" in emb else emb["embedding"]
+    front = params.get("frontend")
+    front_pos = (0 if front is None else b * s if cfg.frontend.kind
+                 == "audio_frames" else b * n_prefix)
+    products = 2 * (b * s * (weights(params.get("periods", {}))
+                             + weights(params.get("tail", {})))
+                    + b * s_text * unembed.numel()
+                    + front_pos * (front["w"].numel() if front else 0))
+    attn = 0
+    for kind in cfg.layer_kinds():
+        if kind == "ssd":
+            continue
+        window = cfg.window_size if kind == "local" else None
+        for backward in ((False, True) if train else (False,)):
+            attn += attention_bound(b, s, s, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, not cfg.encoder_only,
+                                    window, 2, backward=backward)[2]["ops"]
+    return products * (3 if train else 1) + attn
+
+
+def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
+                      data, plain_watch, smi, n_prefix: int = 0) -> dict:
+    """TRAIN_STEPS make_train_step steps at full width on the card, outside
+    any campaign: a fresh state (bf16 params, fp32 master, AdamW; seed 0),
+    one warm-up step, then TRAIN_STEPS steps with every count of
+    ``counted`` (name: (wrapper, attribute, launches a step)) set to 0 just
+    before them and read just after, no plain version on a CUDA tensor
+    (``plain_watch``) and finite losses; then PROFILE_TRAIN_STEPS steps
+    under torch.profiler. The median step beside the operations bound."""
+    ocfg = trainer._ocfg_from_params({})
+    torch.cuda.reset_peak_memory_stats()
+    state = train_step_mod.init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = train_step_mod.make_train_step(cfg, ocfg)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+        cfg, 0, s, batch=run["batch"], seq=run["seq"]).items()}
+        for s in range(1 + TRAIN_STEPS + PROFILE_TRAIN_STEPS)]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    times, losses = [], []
+    with plain_watch as plain:
+        for fn, attr, _ in counted.values():
+            setattr(fn, attr, 0)           # count only these steps
+        for b in batches[1:1 + TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = {name: getattr(fn, attr)
+                    for name, (fn, attr, _) in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)), losses
+    for name, (_, _, per_step) in counted.items():
+        assert launches[name] == per_step * TRAIN_STEPS, \
+            f"{launches[name]} {name} launches, expected {per_step} x " \
+            f"{TRAIN_STEPS}"
+    assert not plain, f"plain versions ran on the card: {plain}"
+    # the steps rebind ``state`` here, so no older train state stays alive
+    # beside the new one (at the gemma3 step's peak, 14 GB more would not
+    # fit the card)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for b in batches[1 + TRAIN_STEPS:]:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share = _device_share({"prof": prof, "wall": wall}, PROFILE_TRAIN_STEPS)
+    ops = model_ops(cfg, state.params, run["batch"], run["seq"], n_prefix,
+                    train=True)
+    del state, batches
+    _free()
+    step_ms = statistics.median(times) * 1e3
+    tokens = run["batch"] * run["seq"]
+    bound_ms = ops / BF16_FLOP_S * 1e3
+    log(f"  {label}: {_describe(cfg, run)}"
+        + (f" (+ {n_prefix} patches a sequence)" if n_prefix else ""))
+    log(f"  {TRAIN_STEPS} steps after a warm-up: median {step_ms:.2f} ms "
+        f"(host clock, synchronised; {[round(x * 1e3, 2) for x in times]}), "
+        f"{tokens * 1e3 / step_ms:.0f} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; launches "
+        + ", ".join(f"{n} {launches[n]} = {per} x {TRAIN_STEPS}"
+                    for n, (_, _, per) in counted.items())
+        + "; no plain-version call on a CUDA tensor  ok")
+    log(f"  device memory: {held / 1e9:.2f} GB held after the warm-up, peak "
+        f"{peak / 1e9:.2f} GB; operations bound {ops:.4g} a step, "
+        f"{bound_ms:.2f} ms at {BF16_FLOP_S / 1e12:.0f} TFLOP/s "
+        f"({bound_ms / step_ms:.1%} of the median step) ({smi})")
+    if share is None or share["busy"] is None:
+        log("  torch.profiler: no device time recorded (not measured)")
+    else:
+        log(f"  torch.profiler over {PROFILE_TRAIN_STEPS} steps: "
+            f"{share['device_ms_per_step']:.2f} ms of device time and "
+            f"{share['kernels']:.0f} kernels a step (busy "
+            f"{share['busy']:.1%}); device ms a step by kernel:")
+        for name, ms in share["top"]:
+            log(f"    {ms:8.4f}  {name[:90]}")
+        mine = [(re.search(r"\w+_kernel", n).group(0), ms)
+                for n, ms in share["by_kernel"]
+                if re.search(r"(ssd|flash)_\w+_kernel", n)]
+        log("  the port's kernels, device ms a step: " + (", ".join(
+            f"{n} {ms:.4f}" for n, ms in mine) or "none recorded"))
+    return {"step_ms": step_ms, "tokens_per_s": tokens * 1e3 / step_ms,
+            "losses": losses, "launches": launches, "peak_bytes": peak,
+            "held_bytes": held, "bound_ms": bound_ms, "ops": ops,
+            "device_ms_per_step": share and share.get("device_ms_per_step"),
+            "kernels_per_step": share and share.get("kernels")}
+
+
+def _fa_counted(fa, layers: int) -> dict:
+    return {"flash_attention": (fa.flash_attention, "launches", layers),
+            "flash_attention_bwd": (fa.flash_attention, "bwd_launches",
+                                    layers)}
+
+
+def phase_federation(knots, writhe, flat: dict, smi) -> dict:
+    """Phase 6's campaign on the paper's deployment: a FederatedCluster of
+    a home site ``edge`` (CPU workers) and a remote site ``hpc`` (CPU
+    workers and one GPU worker) behind a modeled WAN link, the localize
+    stage pinned to ``hpc`` and routed there to the GPU class, the screen
+    spilling to ``hpc`` on backlog (examples/knot_campaign.py's knobs).
+    Results equal phase 6's; every localize task relayed by a bridge and
+    run on the ``hpc`` GPU worker."""
+    from repro_torch.federation import (FederatedCluster, Site,
+                                        SpilloverConfig, WanLink)
+    sites = [Site("edge", workers=2, worker_slots=1),
+             Site("hpc", workers=1, worker_slots=2, gpu_workers=1,
+                  spinup_s=0.5, slot_cost=1.5,
+                  link=WanLink(latency_s=0.01, bandwidth_mbps=500.0))]
+    spill = SpilloverConfig(classes=("cpu",), horizon_s=0.3, min_backlog=2,
+                            interval_s=0.05, cooldown_s=0.2,
+                            drain_idle_s=0.5, bridge_slots=2,
+                            max_bridges_per_class=2)
+    ids = list(range(CAMPAIGN))
+    with FederatedCluster(sites, prefix="fedknots", http=True,
+                          spillover=spill) as fed:
+        spec = knots.knots_pipeline(B_FULL, n_points=N_POINTS,
+                                    gpu_localize=True, localize_site="hpc")
+        writhe.writhe_map.launches = 0     # count only this path's run
+        res = fed.run_campaign(spec, ids, timeout_s=900.0)
+        launches = writhe.writhe_map.launches
+        assert res.status.state == "COMPLETED", res.status.state
+        agg = res.final
+        hpc = fed.clusters["hpc"]
+        gpu_ids = {a.agent_id for a in hpc.agents
+                   if a.profile is not None and a.profile.gpus}
+        locs = sorted(t for t in fed.home.monitor.tasks() if "localize" in t)
+        for tid in locs:
+            home, remote = fed.task(tid), hpc.task(tid)
+            assert home.done and home.agent_id.startswith("bridge-hpc-"), \
+                (tid, home.agent_id)
+            assert remote is not None and remote.done, tid
+            assert remote.agent_id in gpu_ids, (tid, remote.agent_id)
+        screens = [r for r in res.results["screen"] if r]
+        loc_res = [r for r in res.results.get("localize", []) if r]
+        with_work = (sum(1 for r in screens if r["kept"])
+                     + sum(1 for r in loc_res if r["candidates"]))
+        assert locs and launches >= with_work > 0, (locs, launches,
+                                                    with_work)
+        text = fed.metrics_text()
+        assert 'site="edge"' in text and 'site="hpc"' in text
+        rep = fed.campaign_report(res.campaign_id)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{fed.http_port}/sites") as r:
+            payload = json.loads(r.read())
+        relayed = {f"{b.agent_id} ({b.role})": b.tasks_completed
+                   for b in fed.bridges()}
+    want = flat["final"]
+    for key in ("processed", "kept", "knotted", "cores"):
+        assert agg[key] == want[key], key
+    log(f"  campaign: {CAMPAIGN} structures in {res.elapsed_s:.2f} s "
+        f"({CAMPAIGN / res.elapsed_s:.1f} structures/s; phase 6, one "
+        f"site: {flat['elapsed_s']:.2f} s, "
+        f"{CAMPAIGN / flat['elapsed_s']:.1f} structures/s); kept "
+        f"{agg['kept']}, knotted {len(agg['knotted'])}, cores "
+        f"{len(agg['cores'])}, batches {agg['batches']}, mean ACN "
+        f"{agg['mean_acn']:.4f}: processed, kept, knotted and cores equal "
+        f"to phase 6's  ok")
+    for name, s in rep["stages"].items():
+        log(f"    stage {name:>9}: {s['tasks']} tasks, queue "
+            f"{s['queue_s']:.2f} s, run {s['run_s']:.2f} s, wall "
+            f"{s['wall_s']:.2f} s")
+    log(f"  {len(locs)} localize tasks, each completed at home by a "
+        f"bridge-hpc- relay and done in the hpc monitor on its GPU worker "
+        f"{sorted(gpu_ids)}  ok; tasks relayed by bridge {relayed}")
+    log(f"  /sites, completed leases by site: "
+        + ", ".join(f"{n} {s['leases']['completed']}"
+                    for n, s in payload["sites"].items())
+        + f"; writhe launches {launches} (tasks with work {with_work}); "
+        f"metrics_text() carries site=\"edge\" and site=\"hpc\" samples  ok "
+        f"({smi})")
+    return {"launches": launches, "makespan_s": res.elapsed_s,
+            "structures_per_s": CAMPAIGN / res.elapsed_s,
+            "flat_makespan_s": flat["elapsed_s"], "relayed": relayed,
+            "localize_tasks": len(locs),
+            "completed_leases": {n: s["leases"]["completed"]
+                                 for n, s in payload["sites"].items()}}
+
+
+def phase_encoder(fa, models, configs, train_step_mod, plain_watch, smi
+                  ) -> dict:
+    """hubert-xlarge at full width and depth in bf16 (random weights, seed
+    0): ENC_RUNS calls of make_prefill_step (the encoder's serving path)
+    on ENC_BATCH x ENC_SEQ frames, each launching the flash-attention
+    forward once a layer and no plain version on the card; finite logits of
+    the right shape; the median call beside the operations bound."""
+    cfg, params = _serving_model(models, configs,
+                                 configs.get_config(HUBERT_ARCH))
+    prefill = train_step_mod.make_prefill_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    frames = torch.randn((ENC_BATCH, ENC_SEQ, cfg.frontend.input_dim),
+                         generator=gen, device="cuda")
+    prefill(params, {"embeds": frames[:, :1024]})      # first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with plain_watch as plain:
+        fa.flash_attention.launches = 0    # count only these calls
+        for _ in range(ENC_RUNS):
+            t0 = time.perf_counter()
+            logits = prefill(params, {"embeds": frames})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert launches == cfg.n_layers * ENC_RUNS, launches
+    assert not plain, f"plain versions ran on the card: {plain}"
+    assert logits.shape == (ENC_BATCH, ENC_SEQ, cfg.padded_vocab), \
+        logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    ops = model_ops(cfg, params, ENC_BATCH, ENC_SEQ)
+    bound_ms = ops / BF16_FLOP_S * 1e3
+    ms = statistics.median(times) * 1e3
+    log(f"  make_prefill_step on {ENC_BATCH} x {ENC_SEQ} frames of "
+        f"{cfg.frontend.input_dim}: median {ms:.2f} ms over {ENC_RUNS} "
+        f"calls (host clock, synchronised; "
+        f"{[round(x * 1e3, 2) for x in times]}), "
+        f"{ENC_BATCH * ENC_SEQ * 1e3 / ms:.0f} frames/s; flash_attention "
+        f"{launches} = {cfg.n_layers} x {ENC_RUNS}; no plain version on the "
+        f"card; logits {tuple(logits.shape)} finite  ok")
+    log(f"  peak device memory {peak / 1e9:.2f} GB; operations bound "
+        f"{ops:.4g}, {bound_ms:.2f} ms at {BF16_FLOP_S / 1e12:.0f} TFLOP/s "
+        f"({bound_ms / ms:.1%} of the median call) ({smi})")
+    del params, logits, frames
+    _free()
+    return {"prefill_ms": ms, "prefill_launches": launches,
+            "prefill_peak_bytes": peak, "prefill_bound_ms": bound_ms,
+            "prefill_ops": ops}
+
+
+def phase_family_train(fa, configs, train_step_mod, trainer, data, optim,
+                       tree, arch, plain_watch, smi) -> dict:
+    """``arch`` trained at full width and depth (phase_train_steps at
+    FAMILY_TRAIN, the flash-attention kernels once a layer each way), then
+    one float32 step at full width cut to 2 layers on the card and on the
+    CPU (EXACT_TRAIN)."""
+    cfg = configs.get_config(arch)
+    n_prefix = cfg.frontend.n_positions \
+        if cfg.frontend is not None and cfg.frontend.kind == "vit_patches" \
+        else 0
+    trained = phase_train_steps(
+        f"{cfg.name} at full width and depth", cfg, FAMILY_TRAIN,
+        _fa_counted(fa, cfg.n_layers), train_step_mod, trainer, data,
+        plain_watch, smi, n_prefix)
+    cfg32 = cfg.with_(n_layers=2, dtype="float32")
+    batch = {k: torch.from_numpy(v) for k, v in data.batch_at(
+        cfg32, 1, 0, **EXACT_TRAIN).items()}
+    trained["exact"] = _train_step_card_vs_cpu(
+        fa, train_step_mod, optim, tree, cfg32, batch,
+        f"batch {EXACT_TRAIN['batch']} x {EXACT_TRAIN['seq']}"
+        + (f" (+ {n_prefix} patches)" if n_prefix else ""))
+    _free()
+    return trained
+
+
+def phase_vlm_exactness(models, configs, serve, smi) -> dict:
+    """internvl2-1b at full width cut to VLM_EXACT_LAYERS in float32: the
+    dense and paged flash engines' greedy tokens (flash-decode at G = 7, D =
+    64) equal to the chunked engine's."""
+    t0 = time.perf_counter()
+    cfg, params = _serving_model(
+        models, configs, configs.get_config(VLM_ARCH).with_(
+            n_layers=VLM_EXACT_LAYERS, dtype="float32"), torch.float32)
+    prompts = _family_prompts(cfg, N_EXACT, seed=8, lo=40, hi=64)
+    phase_exactness(cfg, params, serve, prompts)
+    log(f"  {VLM_EXACT_LAYERS}-layer float32 check: "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    del params
+    _free()
+    return {"tokens_equal": True}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -2981,7 +3398,7 @@ def main() -> int:
         peaks = phase_breakdown(knots, writhe)
         torch.cuda.empty_cache()
         log(f"== 6. main path: KsaCluster.run_campaign, {CAMPAIGN} structures")
-        launches = phase_main_path(knots, writhe, KsaCluster)
+        knots6 = phase_main_path(knots, writhe, KsaCluster)
         torch.cuda.empty_cache()
         t_serve = time.perf_counter()
         log("== 7. build of the flash-decode kernels")
@@ -3026,6 +3443,13 @@ def main() -> int:
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
             ResourceProfile, record, workdir / "run1",
             plain_watch=plain_calls_on_card(plain_targets))
+        train_cfg = configs.get_config(TRAIN_ARCH)
+        trained["traced"] = phase_train_steps(
+            f"{train_cfg.name} at full width, the campaign's step", train_cfg,
+            TRAIN, {**ssd_counted,
+                    "flash_attention": (fa.flash_attention, "launches", 0)},
+            train_step_mod, trainer, data, plain_calls_on_card(plain_targets),
+            smi)
         log("== 16. recovery at full width: an agent crashed mid-chunk")
         recovered = phase_recovery(trainer, checkpoint, KsaCluster,
                                    ResourceProfile, workdir, ssd_counted,
@@ -3042,24 +3466,28 @@ def main() -> int:
     fa_err = phase_fa_check(fa, fc)
     log("== 20. flash-attention timing (median, CUDA events, L2 flushed)")
     fa_time = phase_fa_timing(fa, fc)
+    no_ssd = {"ssd_scan": (ssd.ssd_scan, "launches", 0),
+              "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", 0)}
     try:
         log(f"== 21. attention training main path: TrainCampaign on "
-            f"KsaCluster, {ATTN_ARCH} at full width, "
-            f"{ATTN_TRAIN['total_steps']} steps")
-        layers = configs.get_config(ATTN_ARCH).n_layers
+            f"KsaCluster, {ATTN_ARCH} at full width cut to "
+            f"{ATTN_TRAIN['layers']} layers, {ATTN_TRAIN['total_steps']} "
+            f"steps; then the full-depth step apart")
         attn_trained = phase_training(
-            ATTN_TRAIN, {"flash_attention": (fa.flash_attention, "launches",
-                                             layers),
-                         "flash_attention_bwd": (fa.flash_attention,
-                                                 "bwd_launches", layers),
-                         "ssd_scan": (ssd.ssd_scan, "launches", 0),
-                         "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", 0)},
+            ATTN_TRAIN, {**_fa_counted(fa, ATTN_TRAIN["layers"]), **no_ssd},
             trainer, train_step_mod, checkpoint, data, configs, KsaCluster,
             ResourceProfile, record, workdir / "attn",
             plain_watch=plain_calls_on_card(plain_targets))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
+    _free()
+    attn_cfg = configs.get_config(ATTN_ARCH)
+    attn_step = phase_train_steps(
+        f"{attn_cfg.name} at full width and depth, the campaign's step",
+        attn_cfg, ATTN_TRAIN, {**_fa_counted(fa, attn_cfg.n_layers),
+                               **no_ssd},
+        train_step_mod, trainer, data, plain_calls_on_card(plain_targets),
+        smi)
     log("== 22. one gemma3-1b train step on the card and on the CPU, float32")
     phase_attn_exactness(fa, train_step_mod, configs, optim, tree)
     _free()
@@ -3092,18 +3520,47 @@ def main() -> int:
         f"single-device chunked_attention, so no plain-version watch) "
         f"({smi})")
     mla = phase_mla(models, configs, serve, smi)
+    t_fed = time.perf_counter()
+    log(f"== 27. the federated knot campaign: FederatedCluster(edge, hpc)."
+        f"run_campaign, {CAMPAIGN} structures, localize on hpc's GPU "
+        f"worker ({smi})")
+    fed = phase_federation(knots, writhe, knots6, smi)
+    _free()
+    log(f"== 28. {HUBERT_ARCH} at full width and depth: the encoder's "
+        f"make_prefill_step on {ENC_BATCH} x {ENC_SEQ} frames, then "
+        f"{TRAIN_STEPS} train steps ({smi})")
+    hubert = phase_encoder(fa, models, configs, train_step_mod,
+                           plain_calls_on_card(plain_targets), smi)
+    hubert |= phase_family_train(fa, configs, train_step_mod, trainer, data,
+                                 optim, tree, HUBERT_ARCH,
+                                 plain_calls_on_card(plain_targets), smi)
+    log(f"== 29. {VLM_ARCH} serving: KsaCluster.run_campaign("
+        f"serve_pipeline) at full width and depth, bf16, dense flash decode "
+        f"at G = 7; exactness at {VLM_EXACT_LAYERS} layers in float32; "
+        f"{TRAIN_STEPS} train steps ({smi})")
+    vlm_served = phase_family_serving(
+        fd, models, configs, serve, KsaCluster, ResourceProfile, VLM_ARCH,
+        dict(max_len=1024), configs.get_config(VLM_ARCH).n_layers, 0,
+        plain_calls_on_card(plain_serving), smi)
+    vlm_exact = phase_vlm_exactness(models, configs, serve, smi)
+    vlm_trained = phase_family_train(fa, configs, train_step_mod, trainer,
+                                     data, optim, tree, VLM_ARCH,
+                                     plain_calls_on_card(plain_targets), smi)
     t_end = time.perf_counter()
     log(f"command time: phases 1-6 {t_serve - t_start:.1f} s, phases 7-11 "
         f"{t_train - t_serve:.1f} s, phases 12-17 {t_attn - t_train:.1f} s, "
         f"phases 18-22 {t_family - t_attn:.1f} s, phases 23-26 "
-        f"{t_end - t_family:.1f} s, all {t_end - t_start:.1f} s")
+        f"{t_fed - t_family:.1f} s, phases 27-29 {t_end - t_fed:.1f} s, "
+        f"all {t_end - t_start:.1f} s")
 
     kernels = [{
         "name": "writhe_map",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/writhe.cu",
         "replaces": "src/repro/kernels/writhe.py:97",
-        "launches": launches,
+        "launches": knots6["launches"] + fed["launches"],
+        "launches_by_path": {"knots": knots6["launches"],
+                             "federation": fed["launches"]},
         "max_abs_err": max(check_err, timing["max_abs_err"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3132,7 +3589,8 @@ def main() -> int:
         # each serving path's run, its counts set to 0 just before it
         by_path = {SERVE_ARCH: served["launches"][name],
                    RG_ARCH: rg_served["launches"][name],
-                   MOE_ARCH: moe_served["launches"][name]}
+                   MOE_ARCH: moe_served["launches"][name],
+                   VLM_ARCH: vlm_served["launches"][name]}
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3158,6 +3616,8 @@ def main() -> int:
             # G = 10: recurrentgemma-2b's ring and paged shapes
             "recurrentgemma": fd_time["recurrentgemma_2b_" + (
                 "paged" if kind == "paged" else "ring")],
+            # G = 7, D = 64: internvl2-1b's dense and paged shapes
+            "internvl2": fd_time["internvl2_1b_" + kind],
             "check": "pass",
         })
     kernels.append({
@@ -3203,12 +3663,22 @@ def main() -> int:
         "check": "pass",
     })
     main_fa = fa_time["gemma3_1b_global"]
+    # each training and encoder path's run, its counts set to 0 just
+    # before it
+    fa_paths = {f"{ATTN_ARCH}_campaign": attn_trained["launches"],
+                f"{ATTN_ARCH}_step": attn_step["launches"],
+                f"{HUBERT_ARCH}_step": hubert["launches"],
+                f"{VLM_ARCH}_step": vlm_trained["launches"]}
+    fa_by_path = {k: v["flash_attention"] for k, v in fa_paths.items()}
+    fa_by_path[f"{HUBERT_ARCH}_prefill"] = hubert["prefill_launches"]
+    bwd_by_path = {k: v["flash_attention_bwd"] for k, v in fa_paths.items()}
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:119",
-        "launches": attn_trained["launches"]["flash_attention"],
+        "launches": sum(fa_by_path.values()),
+        "launches_by_path": fa_by_path,
         "max_abs_err": fa_err["max_abs_err"],
         "ms": main_fa["ms"],
         "plain_ms": main_fa["plain_ms"],
@@ -3225,9 +3695,9 @@ def main() -> int:
         "stablelm": {k: v for k, v in fa_time["stablelm_1_6b"].items()
                      if k != "bwd"},
         "max_abs_err_f32": fa_err["f32_err"],
-        "launches_per_step": (attn_trained["launches"]["flash_attention"]
-                              // ATTN_TRAIN["total_steps"]),
-        "train_step_ms": attn_trained["step_ms"],
+        "launches_per_step": (attn_step["launches"]["flash_attention"]
+                              // TRAIN_STEPS),
+        "train_step_ms": attn_step["step_ms"],
         "check": "pass",
     })
     main_bwd = main_fa["bwd"]
@@ -3238,7 +3708,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:119 (its "
                     "gradient: the JAX package differentiates "
                     "chunked_attention and has no Pallas backward)",
-        "launches": attn_trained["launches"]["flash_attention_bwd"],
+        "launches": sum(bwd_by_path.values()),
+        "launches_by_path": bwd_by_path,
         "max_abs_err": fa_err["bwd_main_err"]["gemma3_1b_global"],
         "ms": main_bwd["ms"],
         "plain_ms": main_bwd["plain_ms"],
@@ -3252,8 +3723,8 @@ def main() -> int:
         "local": fa_time["gemma3_1b_local"]["bwd"],
         "stablelm": fa_time["stablelm_1_6b"]["bwd"],
         "max_abs_err_f32": fa_err["bwd_f32_err"],
-        "launches_per_step": (attn_trained["launches"]["flash_attention_bwd"]
-                              // ATTN_TRAIN["total_steps"]),
+        "launches_per_step": (attn_step["launches"]["flash_attention_bwd"]
+                              // TRAIN_STEPS),
         "check": "pass",
     })
     families = {RG_ARCH: {**{k: rg_served[k] for k in (
@@ -3262,7 +3733,21 @@ def main() -> int:
                 MOE_ARCH: {**{k: moe_served[k] for k in (
                     "makespan_s", "tokens_per_s", "steps", "step_ms",
                     "peak_bytes", "bound_ms")}, **moe_exact},
-                MLA_ARCH: mla}
+                MLA_ARCH: mla,
+                "federation": fed,
+                HUBERT_ARCH: {k: v for k, v in hubert.items()
+                              if k != "launches"},
+                VLM_ARCH: {**{k: vlm_served[k] for k in (
+                    "makespan_s", "tokens_per_s", "steps", "step_ms",
+                    "peak_bytes", "bound_ms")}, **vlm_exact,
+                    "train": {k: v for k, v in vlm_trained.items()
+                              if k != "launches"}},
+                f"{ATTN_ARCH}_campaign": {
+                    k: attn_trained[k] for k in (
+                        "makespan_s", "step_ms", "saves", "restores",
+                        "peak_bytes")} | {"layers": ATTN_TRAIN["layers"]},
+                f"{ATTN_ARCH}_step": {k: v for k, v in attn_step.items()
+                                      if k != "launches"}}
     print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

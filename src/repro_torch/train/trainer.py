@@ -42,6 +42,8 @@ from .step import init_train_state, make_train_step, train_state_shapes
 
 
 def _cfg_from_params(params: dict) -> ModelConfig:
+    # looked up at call time: chip_smoke.py's _depth_cut rebinds this name
+    # to cut a campaign's depth while keeping its full width
     from repro_torch.configs import get_config, smoke_config
     if params.get("smoke", True):
         return smoke_config(params["arch"])

@@ -52,6 +52,14 @@ MODEL_SHAPES = {
                          window=None),
 }
 
+# hubert-xlarge's encoder forward at the prefill_32k sequence (its batch
+# cut from 32 to 1): checked forward only, in bf16 against the plain
+# version in float32, as no dense float64 reference fits at this length
+LONG_SHAPES = {
+    "hubert_xlarge_32k": dict(b=1, s=32768, h=16, kh=16, d=80, causal=False,
+                              window=None),
+}
+
 
 def kernel_case(sq, h, kh, d, win):
     """Exactly the inputs of tests/test_kernels.py for this shape (float32;

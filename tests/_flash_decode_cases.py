@@ -5,8 +5,9 @@ paged), one with Dv != Dk, the edges of the kernels' split of the key range
 over blocks (a long sparse cache, a window whose ends fall inside splits,
 live pages separated by unbound ones, slots with no valid key), groups of
 10 and 16 query heads on one KV head of 256 dims (recurrentgemma-2b's, and
-the kernels' largest: two head groups a KV head), and the serving main
-paths' shapes. All from numpy seeds; imports neither jax nor
+the kernels' largest: two head groups a KV head), 7 query heads on each of
+two KV heads of 64 dims (internvl2-1b's: one head group with a lane
+idle), and the serving main paths' shapes. All from numpy seeds; imports neither jax nor
 the port, so the card tests and the smoke script run where jax is absent.
 
 A case is a dict: ``kind`` ("dense" | "paged"), float32 arrays ``q``
@@ -190,28 +191,31 @@ def _no_valid_key():
                   empty=(0, 1, 2))
 
 
-def _wide_group(g, kind):
-    """G query heads on one KV head of 256 dims: recurrentgemma-2b's group
-    (G = 10) or MAX_G (16), which the kernels cut into two head groups.
-    ``kind``: a dense bounded cache with ragged positions, a ring that has
-    wrapped (window 64) or a paged cache."""
-    rng = np.random.default_rng(20 + g)
-    b, h, d = 3, g, 256
+def _wide_group(g, kind, kh=1, d=256):
+    """G query heads on each of ``kh`` KV heads of ``d`` dims:
+    recurrentgemma-2b's group (G = 10) or MAX_G (16) on one KV head of 256,
+    which the kernels cut into two head groups, or internvl2-1b's (G = 7 on
+    two KV heads of 64), one head group with a lane idle. ``kind``: a dense
+    bounded cache with ragged positions, a ring that has wrapped (window
+    64) or a paged cache."""
+    rng = np.random.default_rng(20 + g if (kh, d) == (1, 256)
+                                else 40 + g)
+    b, h = 3, g * kh
     if kind == "paged":
         ps, pps, npg = 16, 6, 20
-        pool_k = rng.standard_normal((npg, ps, 1, d)).astype(np.float32)
-        pool_v = rng.standard_normal((npg, ps, 1, d)).astype(np.float32)
+        pool_k = rng.standard_normal((npg, ps, kh, d)).astype(np.float32)
+        pool_v = rng.standard_normal((npg, ps, kh, d)).astype(np.float32)
         q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
         qpos = np.asarray([7, 50, 95], np.int32)
         table = bind_pages(qpos, ps, pps, npg, np.random.RandomState(g))
         return dict(kind="paged", q=q, k=pool_k, v=pool_v, qpos=qpos,
                     table=table, window=None, empty=())
     if kind == "ring":
-        q, k, v = _rand_qkv(rng, b, 64, h, 1, d)
+        q, k, v = _rand_qkv(rng, b, 64, h, kh, d)
         t = np.asarray([100, 9, 64])
         return _dense(q, k, v, t - 1, ring_kpos(t, 64), window=64,
                       block_k=32, bounded=False)
-    q, k, v = _rand_qkv(rng, b, 96, h, 1, d)
+    q, k, v = _rand_qkv(rng, b, 96, h, kh, d)
     qpos = [3, 47, 95]
     return _dense(q, k, v, qpos, dense_kpos(qpos, 96), block_k=32)
 
@@ -231,6 +235,9 @@ CASES = {
     "no_valid_key": _no_valid_key,
     **{f"group{g}_{kind}": (lambda g=g, kind=kind: _wide_group(g, kind))
        for g in (10, 16) for kind in ("dense", "ring", "paged")},
+    **{f"group7_kh2_d64_{kind}": (lambda kind=kind: _wide_group(7, kind, 2,
+                                                                 64))
+       for kind in ("dense", "ring", "paged")},
 }
 
 
@@ -281,7 +288,8 @@ def oracle(case):
 
 MAIN_PATH = ("gemma3_1b_ring", "gemma3_1b_paged", "stablelm_dense",
              "stablelm_paged", "recurrentgemma_2b_ring",
-             "recurrentgemma_2b_paged", "moonshot_v1_16b_a3b_paged")
+             "recurrentgemma_2b_paged", "moonshot_v1_16b_a3b_paged",
+             "internvl2_1b_dense", "internvl2_1b_paged")
 # the timed large shape: 64 slots x 8192 cached tokens at stablelm width
 # (4.3 GB of bf16 K/V), made on the card by chip_smoke.py
 LARGE_SHAPE = dict(b=64, s=8192, kh=32, g=1, d=64, page_size=64)
@@ -297,7 +305,9 @@ def main_path_cases(seed=0):
     positions 96-176, and paged over 64-token pages at the same positions
     (max_len 1024). moonshot-v1-16b-a3b (K=16, G=1, D=128): paged over
     64-token pages at those positions (max_len 1024), as its serving phase
-    runs it."""
+    runs it. internvl2-1b (K=2, G=7, D=64): a dense cache of 1024 rows
+    (max_len 1024) at those positions, as its serving phase runs it, and
+    paged over 64-token pages."""
     rng = np.random.default_rng(seed)
     b = 8
     qpos = rng.integers(540, 701, size=b).astype(np.int32)
@@ -320,6 +330,10 @@ def main_path_cases(seed=0):
                                                    d=256)
     cases["moonshot_v1_16b_a3b_paged"] = _paged_main(rng, qpos, kh=16,
                                                      h=16, d=128)
+    q, k, v = _rand_qkv(rng, b, 1024, 14, 2, 64)
+    cases["internvl2_1b_dense"] = _dense(q, k, v, qpos,
+                                         dense_kpos(qpos, 1024))
+    cases["internvl2_1b_paged"] = _paged_main(rng, qpos, kh=2, h=14, d=64)
     return cases
 
 

@@ -1,7 +1,7 @@
 """The port's copy of the KSA control plane against its original.
 
 Every module of ``repro.core``, ``repro.pipeline``, ``repro.autoscale``,
-``repro.obs`` (but ``catalog``) and ``repro.cluster``, and the pure-Python
+``repro.obs``, ``repro.federation`` and ``repro.cluster``, and the pure-Python
 modules of the serving and training slices (``repro.models.config``,
 ``repro.configs``, ``repro.serve`` but its engine, ``repro.data``) are
 copied verbatim into ``repro_torch`` with ``repro.`` renamed to ``repro_torch.`` and the
@@ -20,7 +20,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 COPIED = [
     *(f"obs/{m}.py" for m in ("blackbox", "metrics", "rss", "series", "slo",
-                              "telemetry", "trace", "__init__")),
+                              "telemetry", "trace", "__init__", "catalog")),
     *(f"core/{m}.py" for m in ("messages", "scheduling", "lease", "broker",
                                "computing", "simslurm", "submitter", "agents",
                                "monitor", "__init__")),
@@ -29,6 +29,8 @@ COPIED = [
     *(f"autoscale/{m}.py" for m in ("rate", "policy", "controller",
                                     "__init__")),
     "cluster.py",
+    *(f"federation/{m}.py" for m in ("site", "router", "bridge", "spillover",
+                                     "cluster", "__init__")),
     # pure-Python modules of the serving slice
     "models/config.py",
     *(f"configs/{m}.py" for m in ("__init__", "deepseek_v3_671b",
@@ -88,9 +90,9 @@ def test_copy_matches_original(rel):
 def test_every_control_plane_module_is_copied():
     """A module added to the reference's control plane must be copied (or
     left out on purpose here)."""
-    left_out = {"obs/catalog.py"}
-    for pkg in ("core", "pipeline", "autoscale", "obs", "configs", "serve",
-                "data"):
+    left_out = set()
+    for pkg in ("core", "pipeline", "autoscale", "obs", "federation",
+                "configs", "serve", "data"):
         for f in sorted((SRC / "repro" / pkg).glob("*.py")):
             rel = f"{pkg}/{f.name}"
             assert rel in COPIED or rel in PORTED or rel in left_out, rel

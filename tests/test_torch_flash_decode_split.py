@@ -276,7 +276,9 @@ def test_split_plan_at_the_main_path_shapes():
     132 SMs; the stablelm width (256 pairs) splits in 3; recurrentgemma-2b
     (G = 10: two head groups a KV head, so 16 pairs) 16 ways, four tiles of
     its 2048-row ring or one page a split; moonshot-v1-16b-a3b (128 pairs)
-    4 ways of 4 pages; the large shape (2048 pairs) does not split."""
+    4 ways of 4 pages; internvl2-1b (two KV heads, G = 7 in one head
+    group, so 16 pairs) 16 ways, two tiles of its 1024-row cache or one
+    page a split; the large shape (2048 pairs) does not split."""
     cases = main_path_cases()
     got = {}
     for name, case in cases.items():
@@ -289,7 +291,9 @@ def test_split_plan_at_the_main_path_shapes():
                    "stablelm_dense": (3, 11), "stablelm_paged": (3, 6),
                    "recurrentgemma_2b_ring": (16, 4),
                    "recurrentgemma_2b_paged": (16, 1),
-                   "moonshot_v1_16b_a3b_paged": (4, 4)}
+                   "moonshot_v1_16b_a3b_paged": (4, 4),
+                   "internvl2_1b_dense": (16, 2),
+                   "internvl2_1b_paged": (16, 1)}
     c = LARGE_SHAPE
     pairs = c["b"] * c["kh"]
     assert fd.split_plan(c["s"] // fd.TILE, fd.TILE, pairs, H100_SMS) == (

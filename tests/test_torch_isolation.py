@@ -1,7 +1,8 @@
 """The port imports neither ``jax`` nor anything of the JAX package ``repro``.
 
-Checked twice: in the source text of every module under ``src/repro_torch``
-and of ``chip_smoke.py`` (every ``import`` statement, at any depth), and by
+Checked twice: in the source text of every module under ``src/repro_torch``,
+of ``chip_smoke.py`` and of the port's examples (``examples/torch_*.py``;
+every ``import`` statement, at any depth), and by
 importing every module in a fresh interpreter where those names cannot be
 found. ``msgpack`` is blocked there too: the port's in-memory broker runs
 without it.
@@ -16,7 +17,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -89,6 +91,31 @@ def test_training_slice_is_covered():
                 "repro_torch.data.synthetic", "repro_torch.train.trainer",
                 "repro_torch.kernels.ssd", "repro_torch.models.ssd",
                 "repro_torch.kernels.flash_attention"):
+        assert mod in names, mod
+
+
+def test_federation_and_catalog_are_covered():
+    """The federation's modules, the metrics catalog and the examples are
+    among the files checked above, and the modules import in the blocked
+    interpreter."""
+    rel = {str(p.relative_to(ROOT)) for p in FILES}
+    mods = [f"federation/{m}.py" for m in ("__init__", "bridge", "cluster",
+                                          "router", "site", "spillover")]
+    for need in [*(f"src/repro_torch/{m}" for m in mods),
+                 "src/repro_torch/obs/catalog.py",
+                 *(f"examples/torch_{e}.py" for e in (
+                     "knot_campaign", "quickstart", "serve_batch",
+                     "train_ft"))]:
+        assert need in rel, need
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = _PROBE.replace("print(len(names))", "print(' '.join(names))")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    for m in mods + ["obs/catalog.py"]:
+        mod = "repro_torch." + m[:-3].replace("/", ".").replace(
+            ".__init__", "")
         assert mod in names, mod
 
 

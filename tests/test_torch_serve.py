@@ -7,6 +7,8 @@
   greedy tokens equal to the JAX ``ServeEngine`` with
   ``decode_kernel="chunked"``, including evict/resume, stalled slots and
   the gemma3 ring + paged hybrid; the reference's rejections hold.
+* The replica set's cases of ``tests/test_serve.py`` (routing, shedding and
+  spilling on a TTFT violation, deployment on the port's ``KsaCluster``).
 * One ``serve_pipeline`` campaign through both packages' ``KsaCluster``.
 
 JAX weights are carried across with ``tree_to_torch``. The JAX reference
@@ -335,6 +337,81 @@ def test_replica_set_completes_all_zero_lost(reference):
         assert p.tokens == reference[arch]["tokens"][rid], rid
     fam = register_serve_metrics(reg)["tokens"]
     assert sum(child.value for _, child in fam.items()) >= 5 * len(reqs)
+
+
+def _slo_replica_set(reference, **kw):
+    """tests/test_serve.py's SLO cases: one replica of one slot whose steps
+    take at least 20 ms, held to a 1 ms TTFT."""
+    from repro_torch.serve import ttft_slo
+    arch = "stablelm_1_6b"
+    return ServeReplicaSet(smoke_config(arch), reference[arch]["params"],
+                           n_replicas=1,
+                           engine_kw=dict(n_slots=1, max_len=64,
+                                          step_latency_s=0.02, device="cpu"),
+                           ttft_slo=ttft_slo(0.001), **kw)
+
+
+def test_replica_set_sheds_on_ttft_violation(reference):
+    rs = _slo_replica_set(reference, on_violation="shed")
+    with rs:
+        warm = rs.submit("warm", [2, 3], max_new=4)
+        assert warm.wait(60)   # the rate signal is live from here on
+        burst = [rs.submit(f"b{i}", [2, 3], max_new=8) for i in range(8)]
+        assert rs.drain(timeout=120)
+    assert rs.shed > 0
+    assert rs.lost == 0
+    shed = [p for p in burst if p.status == "shed"]
+    assert all(p.resolved and p.tokens is None for p in shed)
+
+
+def test_replica_set_spills_to_callback(reference):
+    spilled = []
+    rs = _slo_replica_set(reference, on_violation="spill",
+                          spill_to=spilled.append)
+    with rs:
+        warm = rs.submit("warm", [2, 3], max_new=4)
+        assert warm.wait(60)
+        for i in range(8):
+            rs.submit(f"b{i}", [2, 3], max_new=8)
+        assert rs.drain(timeout=120)
+    assert rs.spilled == len(spilled) > 0
+    assert rs.lost == 0
+
+
+def test_replica_set_cluster_deploy(reference):
+    """Replica drivers as long-lived tasks on a serve-tainted pool of the
+    port's KsaCluster, load driven by serve_loadgen tasks on the plain cpu
+    pool."""
+    from repro_torch.cluster import KsaCluster
+    from repro_torch.core.scheduling import ResourceClassPolicy
+    from repro_torch.serve import ServeLoadGenComputing
+
+    arch = "stablelm_1_6b"
+    cfg = smoke_config(arch)
+    rs = ServeReplicaSet(cfg, reference[arch]["params"], n_replicas=2,
+                         engine_kw=dict(n_slots=2, max_len=64, device="cpu"))
+    cluster = KsaCluster(workers=1, prefix="tserve",
+                         placement=ResourceClassPolicy(
+                             extra_classes=("serve",)))
+    with cluster:
+        ids = rs.deploy(cluster, taint="serve")
+        ServeLoadGenComputing.replica_set = rs
+        try:
+            gen = [cluster.submit("serve_loadgen",
+                                  params={"client": f"c{i}", "n_requests": 3,
+                                          "prompt_len": 4, "max_new": 5,
+                                          "vocab_size": cfg.vocab_size})
+                   for i in range(2)]
+            assert cluster.wait_all(gen, timeout=120)
+            results = [cluster.result(t) for t in gen]
+            rs.stop()
+        finally:
+            ServeLoadGenComputing.replica_set = None
+        for t in ids:   # driver tasks completed cleanly with engine stats
+            entry = cluster.task(t)
+            assert entry.status == "DONE" and entry.result["steps"] >= 0
+    assert all(r["completed"] == 3 and r["timed_out"] == 0 for r in results)
+    assert rs.submitted == 6 and rs.lost == 0 and rs.duplicates == 0
 
 
 def test_engine_asks_for_cuda_by_default(reference):
