@@ -55,11 +55,14 @@ card, and times it beside its bound. Phases:
    with the split count and blocks launched at each; the wrapper's host
    time a call at the gemma3-1b shapes (1000 calls, host clock, no sync);
 10. the serving main path: gemma3-1b at full width in bf16 (random weights
-   from ``init_params``), a paged flash ``ServeEngine`` behind
+   from ``init_params``), its depth cut to its first period and its tail
+   (8 of 26 layers), a paged flash ``ServeEngine`` behind
    ``serve_pipeline``: 16 requests in two generate tasks answered with 16
-   tokens each, every page returned, and exactly 22 dense and 4 paged kernel launches per step;
-11. exactness at full width in float32: dense chunked (the reference),
-   dense flash and paged flash engines give the same greedy tokens;
+   tokens each, every page returned, and exactly 7 dense and 1 paged
+   kernel launches per step;
+11. exactness at full width in float32 on the same 8 layers (local and
+   global, so both decode kernels): dense chunked (the reference), dense
+   flash and paged flash engines give the same greedy tokens;
 12. build of the SSD-scan kernels (started beside the others in phase 2);
 13. the SSD-scan kernels against their plain versions on the card. The
    forward: the cases of tests/test_kernels.py (f32 atol 1e-4, bf16 5e-2),
@@ -76,11 +79,11 @@ card, and times it beside its bound. Phases:
    bf16): forward and backward kernels, their plain versions and bounds
    (no PyTorch call computes the scan), and each by kernel;
 15. the training main path: mamba2-130m at full width, bf16 params with an
-   fp32 master, batch 8 x 2048, a ``TrainCampaign`` of 24 steps in 3 chunks
+   fp32 master, batch 8 x 2048, a ``TrainCampaign`` of 16 steps in 2 chunks
    of 8 on a GPU worker of ``KsaCluster``: exactly 24 forward and 24
    backward SSD launches per step, no call of a plain version on a CUDA
-   tensor, finite losses, a checkpoint at step 24, the memory resident at
-   every step of chunks 2 and 3 within 1% of chunk 1's last; step time,
+   tensor, finite losses, a checkpoint at step 16, the memory resident at
+   every step of chunk 2 within 1% of chunk 1's last; step time,
    tokens/s, checkpoint save and restore times and sizes, device memory.
    Then the step apart, as phase 21's (3 steps, the same counts, device
    busy share and device ms a step by kernel);
@@ -142,10 +145,11 @@ card, and times it beside its bound. Phases:
    engine's; the dense flash engine's decode logits against the
    whole-sequence forward (the RG-LRU scan, flash attention at G = 10,
    window 2048) on the same tokens, relative 2e-4;
-25. moonshot-v1-16b-a3b at full width and depth (48 layers, 64 experts) in
-   bf16, served as in 23 but paged (max_len 1024, pages of 64): exactly 48
-   paged launches and no dense one a step, beside the weights bound of a
-   dropless step; then at full width cut to 8 layers in float32: the paged
+25. moonshot-v1-16b-a3b at full width (64 experts) cut to 24 of its 48
+   layers in bf16, served as in 23 but paged (max_len 1024, pages of 64):
+   exactly 24 paged launches and no dense one a step, beside the weights
+   bound of a dropless step; then at full width cut to 8 layers in
+   float32: the paged
    flash engine's tokens equal the chunked engine's, and ``moe_capacity``
    (dropless) equals ``moe_ref`` on one layer's experts (relative 1e-5);
 26. deepseek-v3-671b at full width cut to one layer (MLA, 256 experts): 4
@@ -175,13 +179,36 @@ card, and times it beside its bound. Phases:
    bound; at full width cut to 4 layers in float32 the dense and paged
    flash engines' tokens equal the chunked engine's; three train steps
    at 2 x 4096 text tokens and 256 patches (24 + 24 launches a step) and
-   the float32 2-layer step on the card and on the CPU.
+   the float32 2-layer step on the card and on the CPU;
+30. remat: phase 21's 26-layer gemma3-1b step and phase 15's mamba2-130m
+   step again under ``remat="full"`` (each period checkpointed, the tail
+   not): 50 forward and 26 backward flash-attention launches a gemma3
+   step (2 x 24 + 2), 48 forward and 24 backward SSD launches a mamba2
+   step, asserted; median, peak, held memory and kernels a step beside
+   the steps without; then gemma3-1b at full width cut to one period (6
+   layers) in float32, one step under each policy ("full", "dots",
+   "dots_no_batch") against the step without: loss and params within
+   1e-5, and whether bit-equal;
+31. the sharded train step on a world of one process (NCCL from an
+   in-memory store, a (data=1, model=1) ``DeviceMesh``): in float32,
+   mamba2-130m at full width and depth (the SSD kernels inside the
+   blocks' ``local_map`` regions) and moonshot-v1-16b-a3b at full width
+   cut to one layer, 2 x 512 (the MoE and vocab-parallel islands), the
+   sharded step against the unsharded one from the same state: loss and
+   params within 1e-5, every kernel launched once a layer each way, no
+   plain version on the card; then three bf16 mamba2-130m steps at 8 x
+   2048 sharded beside three unsharded (DTensor's host overhead), every
+   sharded loss within 1e-5 relative of the unsharded one and the params
+   after the last step compared.
 
 The last four lines of its output are the families line (JSON: phases
-21 and 23-29), the kernels line (JSON), the card's name and power limit as
+21, 23-31), the kernels line (JSON), the card's name and power limit as
 nvidia-smi gives them, and the result line (JSON).
 It exits non-zero, and prints no result, when CUDA is unavailable, when the
-repository's sources are missing, or when any phase fails.
+repository's sources are missing, or when any phase fails. Every cluster
+runs with a 600 s session (phase 16's with 10 s, so that its crashed agent
+is evicted), each serving and knot campaign with a 300 s timeout, and past
+1140 s the script writes every thread's stack to stderr and exits.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -203,6 +230,7 @@ and the device memory held and at peak.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import filecmp
 import gc
 import json
@@ -238,6 +266,19 @@ ATOL, RTOL, SYM = 6e-4, 1e-3, 1e-4
 FROB, WR_REL = 2e-4, 3e-4
 B_FULL, N_POINTS = 4000, 512       # the paper's batch; backbone length
 CAMPAIGN = 8000                    # two screen tasks of B_FULL
+# The broker evicts a group member whose loop thread has not heartbeat for
+# its session (10 s by default); an evicted agent is fenced for good, and
+# the campaign it served waits out its timeout. A host stall, the GIL held
+# by a task thread, or a step of the wall clock (the broker ages
+# heartbeats by time.time()) can outlast 10 s, so every cluster here runs
+# with this session, but phase 16's, whose crashed agent must be evicted.
+SESSION_TIMEOUT_S = 600.0
+# a campaign of phases 6, 10, 23, 25, 27 and 29 takes about a minute at
+# most: one that stalls fails in this time, well inside the script's limit
+CAMPAIGN_TIMEOUT_S = 300.0
+# the whole script must end within 1200 s: past this, every thread's stack
+# goes to stderr and the process exits with a code other than 0
+WATCHDOG_S = 1140.0
 # H100 SXM, NVIDIA data sheet: HBM3 bytes/s and fp32 (non-tensor) FLOP/s
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # fp32 operations the function needs per off-band segment pair, whatever
@@ -630,10 +671,11 @@ def phase_breakdown(knots, writhe) -> dict:
 def phase_main_path(knots, writhe, KsaCluster) -> dict:
     ids = list(range(CAMPAIGN))
     writhe.writhe_map.launches = 0         # count only the main path's run
-    with KsaCluster(workers=1, gpu_workers=1) as c:
+    with KsaCluster(workers=1, gpu_workers=1,
+                    session_timeout_s=SESSION_TIMEOUT_S) as c:
         spec = knots.knots_pipeline(B_FULL, n_points=N_POINTS,
                                     gpu_localize=True)
-        res = c.run_campaign(spec, ids, timeout_s=900.0)
+        res = c.run_campaign(spec, ids, timeout_s=CAMPAIGN_TIMEOUT_S)
         launches = writhe.writhe_map.launches
         agg = res.final
         assert res.status.state == "COMPLETED", res.status.state
@@ -659,7 +701,8 @@ def phase_main_path(knots, writhe, KsaCluster) -> dict:
         t0 = time.perf_counter()
         tids = c.submit_batches("knot_batch", ids, batch_size=B_FULL,
                                 params={"n_points": N_POINTS, "stage2": True})
-        assert c.wait_all(tids, timeout=900.0), "flat baseline stalled"
+        assert c.wait_all(tids, timeout=CAMPAIGN_TIMEOUT_S), \
+            "flat baseline stalled"
         flat_s = time.perf_counter() - t0
         knotted, cores, flat_work = set(), {}, 0
         for t in tids:
@@ -686,6 +729,11 @@ SERVE_ARCH = "gemma3_1b"
 # 16 requests make two generate tasks of the pipeline's batch of 8: the
 # second reuses the slots and pages the first returned
 N_TEXTS, MAX_NEW, N_EXACT, MAX_NEW_EXACT = 16, 16, 4, 8
+# phase 10's depth: gemma3-1b's first 5:1 period and its two tail layers
+# (of 26: its host-bound step scales with the layers it runs), so both
+# decode kernels; phase 11 checks the same 8 layers
+SERVE_LAYERS = 8
+EXACT_SERVE_LAYERS = 8
 L2_BYTES = 64 << 20                        # more than the 50 MB L2
 
 
@@ -1310,7 +1358,8 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile, *,
     _timed_serve(eng, step_s, profile_at=min(lens[:8]) - 2 * PROFILE_STEPS,
                  trace=trace)
     try:
-        with KsaCluster(workers=1) as c:
+        with KsaCluster(workers=1,
+                        session_timeout_s=SESSION_TIMEOUT_S) as c:
             c.add_worker(slots=1, profile=ResourceProfile(cpus=2, gpus=1,
                                                           mem_mb=4096))
             spec = serve.serve_pipeline(batch_size=8,
@@ -1321,7 +1370,8 @@ def phase_serving(fd, cfg, params, serve, KsaCluster, ResourceProfile, *,
             with plain_watch or contextlib.nullcontext({}) as plain:
                 fd.flash_decode.launches = 0   # count only this path's run
                 fd.flash_decode_paged.launches = 0
-                res = c.run_campaign(spec, texts, timeout_s=900.0)
+                res = c.run_campaign(spec, texts,
+                                     timeout_s=CAMPAIGN_TIMEOUT_S)
                 dense = fd.flash_decode.launches
                 paged = fd.flash_decode_paged.launches
             steps = eng.steps - steps0
@@ -1449,6 +1499,15 @@ def phase_exactness(cfg, params, serve, prompts=None, ref_kw=None,
     return runs
 
 
+def _first_layers(cfg, params, n_layers: int) -> tuple:
+    """``cfg`` and ``params`` cut to their first whole periods and the
+    tail: ``n_layers`` must keep the config's remainder."""
+    cut = cfg.with_(n_layers=n_layers)
+    assert cut.n_remainder == cfg.n_remainder, (n_layers, cfg.period)
+    return cut, dict(params, periods=_map(lambda x: x[:cut.n_periods],
+                                          params["periods"]))
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
@@ -1468,7 +1527,7 @@ BF16_FLOP_S = 989e12                        # H100 SXM dense bf16 tensor cores
 # and mem_mb, the host memory a chunk may grow by (the checkpoint's host
 # copy and its serialization buffers; the agent revokes a task past it).
 # mamba2-130m: 1.8 GB of state, so 16 GB covers it.
-TRAIN = dict(arch=TRAIN_ARCH, batch=8, seq=2048, total_steps=24,
+TRAIN = dict(arch=TRAIN_ARCH, batch=8, seq=2048, total_steps=16,
              chunk_steps=8, mem_mb=16384)
 RECOVERY = dict(TRAIN, total_steps=8, chunk_steps=4)
 PROFILE_TRAIN_STEPS = 3
@@ -1834,12 +1893,14 @@ def _instrument_training(trainer, ckpt_mod) -> dict:
     return record
 
 
-def _gpu_cluster(KsaCluster):
-    # a 10 s session: an agent whose loop thread waits on the GIL for a
-    # few seconds (a task thread serializing a 1.8 GB checkpoint) must not
-    # be evicted from its group
+def _gpu_cluster(KsaCluster, session_timeout_s=SESSION_TIMEOUT_S):
+    # phase 16 passes a 10 s session, so that its crashed agent's
+    # partitions pass to the new one soon; an agent whose loop thread waits
+    # on the GIL for a few seconds (a task thread serializing a 1.8 GB
+    # checkpoint) must still not be evicted from its group
     return KsaCluster(prefix="train", task_timeout_s=20.0, max_attempts=4,
-                      session_timeout_s=10.0, default_partitions=2,
+                      session_timeout_s=session_timeout_s,
+                      default_partitions=2,
                       agent_kw=dict(heartbeat_interval_s=0.2))
 
 
@@ -2023,7 +2084,8 @@ def phase_recovery(trainer, ckpt_mod, KsaCluster, ResourceProfile,
         record[k].clear()
     for fn, attr, _ in counted.values():
         setattr(fn, attr, 0)
-    with _gpu_cluster(KsaCluster) as c, plain_watch as plain_calls:
+    with _gpu_cluster(KsaCluster, session_timeout_s=10.0) as c, \
+            plain_watch as plain_calls:
         a1 = _gpu_worker(c, ResourceProfile, RECOVERY)
         camp = _campaign(trainer, c, workdir / "run2", RECOVERY)
         box: dict = {}
@@ -2795,7 +2857,9 @@ FAMILY_LOGITS_REL = 2e-4
 # |diff| over max |out|: the same products summed over d_model and d_expert
 # in two orders (batched products against einsums)
 MOE_REL = 1e-5
-MOE_EXACT_LAYERS = 8      # moonshot's depth in its float32 check
+# moonshot's depth served in bf16 (of 48: its host-bound step scales with
+# the layers it runs), and in its float32 check
+MOE_SERVE_LAYERS, MOE_EXACT_LAYERS = 24, 8
 MOE_TOKENS = 64           # tokens of the one-layer MoE check
 
 
@@ -2842,12 +2906,16 @@ def _whole_against_decode(models, cfg, params, prompts, runs, label,
 
 def phase_family_serving(fd, models, configs, serve, KsaCluster,
                          ResourceProfile, arch, engine_kw, n_dense, n_paged,
-                         plain_watch, smi) -> dict:
+                         plain_watch, smi, layers=None) -> dict:
     """One family's serving cell at full width in bf16 (random weights,
-    seed 0): FAMILY_TEXTS requests of FAMILY_LO-FAMILY_HI prompt tokens and
-    MAX_NEW new ones through ``serve_pipeline`` on one GPU worker, with the
-    launch counts asserted, beside the weights bound of a step."""
-    cfg, params = _serving_model(models, configs, configs.get_config(arch))
+    seed 0; the depth cut to ``layers`` if given): FAMILY_TEXTS requests of
+    FAMILY_LO-FAMILY_HI prompt tokens and MAX_NEW new ones through
+    ``serve_pipeline`` on one GPU worker, with the launch counts asserted,
+    beside the weights bound of a step."""
+    cfg = configs.get_config(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    cfg, params = _serving_model(models, configs, cfg)
     texts = _texts(FAMILY_TEXTS, seed=2, lo=FAMILY_LO, hi=FAMILY_HI)
     served = phase_serving(fd, cfg, params, serve, KsaCluster,
                            ResourceProfile, texts=texts, engine_kw=engine_kw,
@@ -3051,9 +3119,11 @@ def model_ops(cfg, params, b: int, s_text: int, n_prefix: int = 0,
 
 
 def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
-                      data, plain_watch, smi, n_prefix: int = 0) -> dict:
-    """TRAIN_STEPS make_train_step steps at full width on the card, outside
-    any campaign: a fresh state (bf16 params, fp32 master, AdamW; seed 0),
+                      data, plain_watch, smi, n_prefix: int = 0,
+                      remat: str = "none") -> dict:
+    """TRAIN_STEPS make_train_step steps (``remat`` as given) at full width
+    on the card, outside any campaign: a fresh state (bf16 params, fp32
+    master, AdamW; seed 0),
     one warm-up step, then TRAIN_STEPS steps with every count of
     ``counted`` (name: (wrapper, attribute, launches a step)) set to 0 just
     before them and read just after, no plain version on a CUDA tensor
@@ -3063,7 +3133,7 @@ def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
     torch.cuda.reset_peak_memory_stats()
     state = train_step_mod.init_train_state(
         cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    step = train_step_mod.make_train_step(cfg, ocfg)
+    step = train_step_mod.make_train_step(cfg, ocfg, remat=remat)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
         cfg, 0, s, batch=run["batch"], seq=run["seq"]).items()}
         for s in range(1 + TRAIN_STEPS + PROFILE_TRAIN_STEPS)]
@@ -3110,7 +3180,8 @@ def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
     tokens = run["batch"] * run["seq"]
     bound_ms = ops / BF16_FLOP_S * 1e3
     log(f"  {label}: {_describe(cfg, run)}"
-        + (f" (+ {n_prefix} patches a sequence)" if n_prefix else ""))
+        + (f" (+ {n_prefix} patches a sequence)" if n_prefix else "")
+        + (f", remat={remat!r}" if remat != "none" else ""))
     log(f"  {TRAIN_STEPS} steps after a warm-up: median {step_ms:.2f} ms "
         f"(host clock, synchronised; {[round(x * 1e3, 2) for x in times]}), "
         f"{tokens * 1e3 / step_ms:.0f} tokens/s; losses "
@@ -3159,10 +3230,12 @@ def phase_federation(knots, writhe, flat: dict, smi) -> dict:
     run on the ``hpc`` GPU worker."""
     from repro_torch.federation import (FederatedCluster, Site,
                                         SpilloverConfig, WanLink)
-    sites = [Site("edge", workers=2, worker_slots=1),
+    session = {"session_timeout_s": SESSION_TIMEOUT_S}
+    sites = [Site("edge", workers=2, worker_slots=1, cluster_kw=session),
              Site("hpc", workers=1, worker_slots=2, gpu_workers=1,
                   spinup_s=0.5, slot_cost=1.5,
-                  link=WanLink(latency_s=0.01, bandwidth_mbps=500.0))]
+                  link=WanLink(latency_s=0.01, bandwidth_mbps=500.0),
+                  cluster_kw=session)]
     spill = SpilloverConfig(classes=("cpu",), horizon_s=0.3, min_backlog=2,
                             interval_s=0.05, cooldown_s=0.2,
                             drain_idle_s=0.5, bridge_slots=2,
@@ -3173,7 +3246,7 @@ def phase_federation(knots, writhe, flat: dict, smi) -> dict:
         spec = knots.knots_pipeline(B_FULL, n_points=N_POINTS,
                                     gpu_localize=True, localize_site="hpc")
         writhe.writhe_map.launches = 0     # count only this path's run
-        res = fed.run_campaign(spec, ids, timeout_s=900.0)
+        res = fed.run_campaign(spec, ids, timeout_s=CAMPAIGN_TIMEOUT_S)
         launches = writhe.writhe_map.launches
         assert res.status.state == "COMPLETED", res.status.state
         agg = res.final
@@ -3327,6 +3400,298 @@ def phase_vlm_exactness(models, configs, serve, smi) -> dict:
 
 
 
+# -- remat and the sharded train step (phases 30-31) -------------------------
+
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+REMAT_EXACT = dict(layers=6, batch=2, seq=1024)   # one full gemma3 period
+# the sharded step's float32 parity (world of one): mamba2-130m at full
+# width and depth, moonshot-v1-16b-a3b at full width cut to 1 layer
+SHARD_EXACT = {TRAIN_ARCH: dict(layers=None, batch=2, seq=1024),
+               "moonshot_v1_16b_a3b": dict(layers=1, batch=2, seq=512)}
+SHARD_BF16_REL = 1e-5   # the sharded bf16 losses against the unsharded
+
+
+def remat_launches(cfg, kind_of: tuple, remat: str) -> int:
+    """Forward launches a train step makes of the kernel that the layers
+    of the kinds ``kind_of`` run: once a layer, and once more in the
+    backward for each such layer inside a checkpointed period (the tail is
+    not checkpointed)."""
+    in_periods = sum(k in kind_of for k in cfg.layer_pattern) * cfg.n_periods
+    tail = sum(k in kind_of for k in cfg.layer_pattern[:cfg.n_remainder])
+    return (2 if remat != "none" else 1) * in_periods + tail
+
+
+def _exact_opt(optim):
+    # eps as in tests/test_torch_train.py and phase 17
+    return optim.OptimizerConfig(lr=1e-3, eps=1e-5, warmup_steps=0,
+                                 schedule="constant", weight_decay=0.1)
+
+
+def _param_diff(tree, got, want) -> tuple[float, str, bool]:
+    """(max |got - want| over the params, where, every leaf bit-equal),
+    compared on ``got``'s device a leaf at a time."""
+    worst, where, equal = 0.0, "", True
+    for (name, g), w in zip(tree.paths(got), tree.leaves(want)):
+        g, w = g.detach(), w.detach().to(g.device)
+        equal = equal and torch.equal(g, w)
+        e = float((g.float() - w.float()).abs().max())
+        if e > worst:
+            worst, where = e, name
+    return worst, where, equal
+
+
+def phase_remat_exactness(fa, train_step_mod, configs, optim, tree, data,
+                          smi) -> dict:
+    """gemma3-1b at full width cut to one period (6 layers), float32, one
+    train step on the card under each remat policy against the step
+    without: loss and params within 1e-5, and whether bit-equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(ATTN_ARCH).with_(
+        n_layers=REMAT_EXACT["layers"], dtype="float32")
+    ocfg = _exact_opt(optim)
+    state = train_step_mod.init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+        cfg, 1, 0, batch=REMAT_EXACT["batch"],
+        seq=REMAT_EXACT["seq"]).items()}
+    want, wm = train_step_mod.make_train_step(cfg, ocfg)(state, batch)
+    out = {}
+    for policy in REMAT_POLICIES:
+        before = fa.flash_attention.launches
+        got, gm = train_step_mod.make_train_step(cfg, ocfg, remat=policy)(
+            state, batch)
+        torch.cuda.synchronize()
+        fwd = fa.flash_attention.launches - before
+        assert fwd == remat_launches(cfg, ("attn", "local"), policy), fwd
+        loss_err = abs(float(gm["loss"]) - float(wm["loss"]))
+        worst, where, equal = _param_diff(tree, got.params, want.params)
+        equal = equal and float(gm["loss"]) == float(wm["loss"])
+        assert loss_err <= 1e-5 * abs(float(wm["loss"])), loss_err
+        assert worst <= 1e-5, (policy, worst, where)
+        log(f"  remat={policy!r}: loss {float(gm['loss']):.6f} against "
+            f"{float(wm['loss']):.6f} (|diff| {loss_err:.3g}), params max "
+            f"|diff| {worst:.3g}{f' at {where}' if worst else ''} (limits "
+            f"1e-5); {'bit-equal' if equal else 'not bit-equal'}; {fwd} "
+            f"forward flash-attention launches  ok")
+        out[policy] = {"loss_err": loss_err, "param_err": worst,
+                       "bit_equal": equal, "fwd_launches": fwd}
+        del got
+    del state, want
+    _free()
+    log(f"  {cfg.name} cut to {cfg.n_layers} layers (one period), float32, "
+        f"batch {REMAT_EXACT['batch']} x {REMAT_EXACT['seq']} ({smi})")
+    return out
+
+
+def phase_remat(fa, ssd, configs, train_step_mod, trainer, data, optim, tree,
+                plain_targets, attn_step, mamba_step, smi) -> dict:
+    """The gemma3-1b step of phase 21 (26 layers, 2 x 4096, bf16) and the
+    mamba2-130m step of phase 15 (24 layers, 8 x 2048) under
+    remat="full", each beside the same run's step without remat; then the
+    float32 policy checks."""
+    no_ssd = {"ssd_scan": (ssd.ssd_scan, "launches", 0),
+              "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", 0)}
+    gcfg = configs.get_config(ATTN_ARCH)
+    g_fwd = remat_launches(gcfg, ("attn", "local"), "full")
+    gem = phase_train_steps(
+        f"{gcfg.name} at full width and depth, remat", gcfg, ATTN_TRAIN,
+        {"flash_attention": (fa.flash_attention, "launches", g_fwd),
+         "flash_attention_bwd": (fa.flash_attention, "bwd_launches",
+                                 gcfg.n_layers), **no_ssd},
+        train_step_mod, trainer, data, plain_calls_on_card(plain_targets),
+        smi, remat="full")
+    mcfg = configs.get_config(TRAIN_ARCH)
+    m_fwd = remat_launches(mcfg, ("ssd",), "full")
+    mam = phase_train_steps(
+        f"{mcfg.name} at full width and depth, remat", mcfg, TRAIN,
+        {"ssd_scan": (ssd.ssd_scan, "launches", m_fwd),
+         "ssd_scan_bwd": (ssd.ssd_scan, "bwd_launches", mcfg.n_layers),
+         "flash_attention": (fa.flash_attention, "launches", 0)},
+        train_step_mod, trainer, data, plain_calls_on_card(plain_targets),
+        smi, remat="full")
+    for name, on, off in ((gcfg.name, gem, attn_step),
+                          (mcfg.name, mam, mamba_step)):
+        log(f"  {name}: remat='full' median {on['step_ms']:.2f} ms against "
+            f"{off['step_ms']:.2f} ms without ({on['step_ms'] / off['step_ms']:.3f}"
+            f"x); peak {on['peak_bytes'] / 1e9:.2f} GB against "
+            f"{off['peak_bytes'] / 1e9:.2f} GB, held "
+            f"{on['held_bytes'] / 1e9:.2f} GB against "
+            f"{off['held_bytes'] / 1e9:.2f} GB; kernels a step "
+            f"{on['kernels_per_step']} against {off['kernels_per_step']} "
+            f"({smi})")
+    exact = phase_remat_exactness(fa, train_step_mod, configs, optim, tree,
+                                  data, smi)
+    return {ATTN_ARCH: gem, TRAIN_ARCH: mam, "exact": exact}
+
+
+def _sharded_exact(dist, arch, run, fa, ssd, configs, train_step_mod,
+                   optim, tree, data, plain_targets, smi) -> dict:
+    """One float32 step of ``arch`` (full width, ``run['layers']`` layers
+    or all) sharded by ``dist`` against the unsharded step on the card,
+    from the same state: loss and params within 1e-5; every kernel of the
+    path launched once a layer each way, no plain version on the card.
+    Only the unsharded step's loss and params (on the host) are kept while
+    the sharded step runs."""
+    cfg = configs.get_config(arch)
+    if run["layers"]:
+        cfg = cfg.with_(n_layers=run["layers"])
+    cfg = cfg.with_(dtype="float32")
+    ocfg = _exact_opt(optim)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+        cfg, 1, 0, batch=run["batch"], seq=run["seq"]).items()}
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+    n_ssd = cfg.layer_kinds().count("ssd")
+    counts = ((fa.flash_attention, "launches", n_attn),
+              (fa.flash_attention, "bwd_launches", n_attn),
+              (ssd.ssd_scan, "launches", n_ssd),
+              (ssd.ssd_scan, "bwd_launches", n_ssd))
+    state = train_step_mod.init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    new, m = train_step_mod.make_train_step(cfg, ocfg)(state, batch)
+    want_loss = float(m["loss"])
+    want = tree.tree_map(lambda t: t.cpu(), new.params)
+    del new, m
+    sharded = train_step_mod.shard_train_state(state, cfg, ocfg, dist)
+    del state
+    _free()
+    step = train_step_mod.make_train_step(cfg, ocfg, dist=dist)
+    with plain_calls_on_card(plain_targets) as plain:
+        for fn, attr, _ in counts:
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        new, m = step(sharded, dist.shard_batch(batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [getattr(fn, attr) for fn, attr, _ in counts]
+    assert launches == [n for _, _, n in counts], launches
+    assert not plain, f"plain versions ran on the card: {plain}"
+    loss_err = abs(float(m["loss"]) - want_loss)
+    got = dist.gather(new.params)
+    worst, where, equal = _param_diff(tree, got, want)
+    del new, sharded, got
+    _free()
+    assert loss_err <= 1e-5 * abs(want_loss), loss_err
+    assert worst <= 1e-5, (worst, where)
+    log(f"  {cfg.name}, {cfg.n_layers} layers, float32, batch "
+        f"{run['batch']} x {run['seq']}: sharded loss {float(m['loss']):.6f}"
+        f" against {want_loss:.6f} (|diff| {loss_err:.3g}), params max "
+        f"|diff| {worst:.3g} (limits 1e-5; "
+        f"{'bit-equal' if equal else 'not bit-equal'}); launches "
+        f"flash_attention {launches[0]} + {launches[1]}, ssd_scan "
+        f"{launches[2]} + {launches[3]}; no plain version on the card; step "
+        f"{wall:.2f} s  ok")
+    return {"loss_err": loss_err, "param_err": worst, "bit_equal": equal,
+            "launches": dict(zip(("flash_attention", "flash_attention_bwd",
+                                  "ssd_scan", "ssd_scan_bwd"), launches))}
+
+
+def _sharded_timed(dist, ssd, fa, configs, train_step_mod, trainer, data,
+                   tree, plain_targets) -> dict:
+    """mamba2-130m at full width and depth in bf16 (phase 15's 8 x 2048;
+    bf16 params, a float32 master): the unsharded and the sharded step,
+    each from the same fresh state (seed 0), one warm-up and TRAIN_STEPS
+    timed steps each, medians on the host clock (synchronised). On a world
+    of one the sharded step runs the unsharded step's operations, so every
+    sharded loss is held to the unsharded one within SHARD_BF16_REL (a
+    float32 rounding difference in a gradient grows, through the bf16
+    params rounded from the master, to about 1e-4 of the loss after one
+    step); the params after the last step are compared too."""
+    cfg = configs.get_config(TRAIN_ARCH)
+    ocfg = trainer._ocfg_from_params({})
+    n = cfg.n_layers
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+        cfg, 0, s, batch=TRAIN["batch"], seq=TRAIN["seq"]).items()}
+        for s in range(1 + TRAIN_STEPS)]
+    out = {}
+    for name in ("unsharded", "sharded"):
+        state = train_step_mod.init_train_state(
+            cfg, ocfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        if name == "sharded":
+            state = train_step_mod.shard_train_state(state, cfg, ocfg, dist)
+            step = train_step_mod.make_train_step(cfg, ocfg, dist=dist)
+            feed = [dist.shard_batch(b) for b in batches]
+        else:
+            step = train_step_mod.make_train_step(cfg, ocfg)
+            feed = batches
+        state, _ = step(state, feed[0])
+        torch.cuda.synchronize()
+        times, losses = [], []
+        with plain_calls_on_card(plain_targets) as plain:
+            ssd.ssd_scan.launches = ssd.ssd_scan.bwd_launches = 0
+            for b in feed[1:]:
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            launches = (ssd.ssd_scan.launches, ssd.ssd_scan.bwd_launches)
+        assert launches == (n * TRAIN_STEPS, n * TRAIN_STEPS), launches
+        assert not plain, f"plain versions ran on the card: {plain}"
+        assert all(np.isfinite(losses)), losses
+        out[name] = {"step_ms": statistics.median(times) * 1e3,
+                     "times_ms": [t * 1e3 for t in times], "losses": losses,
+                     "launches": {"ssd_scan": launches[0],
+                                  "ssd_scan_bwd": launches[1]}}
+        if name == "unsharded":
+            want = tree.tree_map(lambda t: t.cpu(), state.params)
+        else:
+            worst, where, equal = _param_diff(
+                tree, dist.gather(state.params), want)
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(losses, out["unsharded"]["losses"])]
+            out[name].update(loss_rel=max(rel), param_err=worst,
+                             bit_equal=equal and rel == [0.0] * len(rel))
+            assert max(rel) <= SHARD_BF16_REL, (losses,
+                                                out["unsharded"]["losses"])
+        del state
+        _free()
+    del batches, want
+    _free()
+    return out
+
+
+def phase_sharded(fa, ssd, configs, train_step_mod, trainer, data, optim,
+                  tree, plain_targets, smi) -> dict:
+    """The sharded train step on a world of one process (NCCL from an
+    in-memory store, a (data=1, model=1) mesh): the float32 parity of
+    SHARD_EXACT, then the bf16 timing beside the unsharded step."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.sharding import DistContext
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        dist = DistContext(make_smoke_mesh(1, 1, device_type="cuda"))
+        out = {arch: _sharded_exact(dist, arch, run, fa, ssd, configs,
+                                    train_step_mod, optim, tree, data,
+                                    plain_targets, smi)
+               for arch, run in SHARD_EXACT.items()}
+        timed = _sharded_timed(dist, ssd, fa, configs, train_step_mod,
+                               trainer, data, tree, plain_targets)
+    finally:
+        tdist.destroy_process_group()
+    u, s_ = timed["unsharded"], timed["sharded"]
+    log(f"  {TRAIN_ARCH} at full width and depth, bf16, "
+        f"{TRAIN['batch']} x {TRAIN['seq']}: sharded median "
+        f"{s_['step_ms']:.2f} ms ({[round(x, 2) for x in s_['times_ms']]}) "
+        f"against {u['step_ms']:.2f} ms unsharded "
+        f"({[round(x, 2) for x in u['times_ms']]}): DTensor's host overhead "
+        f"{s_['step_ms'] - u['step_ms']:.2f} ms a step; ssd_scan "
+        f"{s_['launches']['ssd_scan']} + {s_['launches']['ssd_scan_bwd']} "
+        f"over {TRAIN_STEPS} sharded steps; no plain version on the card; "
+        f"losses {[round(x, 6) for x in s_['losses']]} sharded, "
+        f"{[round(x, 6) for x in u['losses']]} unsharded, from the same "
+        f"state: max relative |diff| {s_['loss_rel']:.3g} (limit "
+        f"{SHARD_BF16_REL:g}), params after the last step max |diff| "
+        f"{s_['param_err']:.3g} "
+        f"({'bit-equal' if s_['bit_equal'] else 'not bit-equal'}) ({smi})  ok")
+    out["timed"] = timed
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -3383,6 +3748,8 @@ def main() -> int:
 
     torch.cuda.set_device(0)
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(WATCHDOG_S - (t_start - T_START),
+                                      exit=True)
     log("== 1. environment")
     smi = phase_environment(build)
     with ThreadPoolExecutor(max_workers=4) as pool:
@@ -3409,12 +3776,14 @@ def main() -> int:
         "queued)")
     fd_time = phase_flash_timing(fd, fdc)
     log(f"== 10. serving main path: KsaCluster.run_campaign(serve_pipeline), "
-        f"{SERVE_ARCH} at full width")
-    cfg, params = _serving_model(models, configs)
+        f"{SERVE_ARCH} at full width cut to {SERVE_LAYERS} layers")
+    cfg, params = _serving_model(models, configs, configs.get_config(
+        SERVE_ARCH).with_(n_layers=SERVE_LAYERS))
     served = phase_serving(fd, cfg, params, serve, KsaCluster,
                            ResourceProfile)
-    log("== 11. exactness at full width in float32")
-    phase_exactness(cfg, params, serve)
+    log(f"== 11. exactness at full width in float32, cut to "
+        f"{EXACT_SERVE_LAYERS} layers")
+    phase_exactness(*_first_layers(cfg, params, EXACT_SERVE_LAYERS), serve)
     del params
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
@@ -3506,14 +3875,14 @@ def main() -> int:
     log(f"== 24. recurrentgemma-2b exactness at full width in float32 ({smi})")
     rg_exact = phase_rg_exactness(fa, models, configs, serve, smi)
     log(f"== 25. moonshot-v1-16b-a3b serving: KsaCluster.run_campaign("
-        f"serve_pipeline) at full width and depth, bf16, paged flash "
-        f"decode; then exactness at full width cut to {MOE_EXACT_LAYERS} "
+        f"serve_pipeline) at full width cut to {MOE_SERVE_LAYERS} layers, "
+        f"bf16, paged flash decode; then exactness at full width cut to "
+        f"{MOE_EXACT_LAYERS} "
         f"layers, float32 ({smi})")
     moe_served = phase_family_serving(
         fd, models, configs, serve, KsaCluster, ResourceProfile, MOE_ARCH,
-        dict(paged=True, page_size=64, max_len=1024), 0,
-        configs.get_config(MOE_ARCH).n_layers,
-        plain_calls_on_card(plain_serving), smi)
+        dict(paged=True, page_size=64, max_len=1024), 0, MOE_SERVE_LAYERS,
+        plain_calls_on_card(plain_serving), smi, layers=MOE_SERVE_LAYERS)
     moe_exact = phase_moe_exactness(models, configs, serve, smi)
     log(f"== 26. deepseek-v3-671b at full width cut to 1 layer (MLA and the "
         f"256-expert MoE; its attention is the reference's own "
@@ -3546,12 +3915,25 @@ def main() -> int:
     vlm_trained = phase_family_train(fa, configs, train_step_mod, trainer,
                                      data, optim, tree, VLM_ARCH,
                                      plain_calls_on_card(plain_targets), smi)
+    t_remat = time.perf_counter()
+    log(f"== 30. remat: the {ATTN_ARCH} and {TRAIN_ARCH} steps of phases 21 "
+        f"and 15 under remat='full'; then each policy against none in "
+        f"float32 ({smi})")
+    remat = phase_remat(fa, ssd, configs, train_step_mod, trainer, data,
+                        optim, tree, plain_targets, attn_step,
+                        trained["traced"], smi)
+    log(f"== 31. the sharded train step on a world of one (NCCL, (data=1, "
+        f"model=1) mesh): float32 parity with the unsharded step, then bf16 "
+        f"steps beside it ({smi})")
+    sharded = phase_sharded(fa, ssd, configs, train_step_mod, trainer, data,
+                            optim, tree, plain_targets, smi)
     t_end = time.perf_counter()
+    faulthandler.cancel_dump_traceback_later()
     log(f"command time: phases 1-6 {t_serve - t_start:.1f} s, phases 7-11 "
         f"{t_train - t_serve:.1f} s, phases 12-17 {t_attn - t_train:.1f} s, "
         f"phases 18-22 {t_family - t_attn:.1f} s, phases 23-26 "
-        f"{t_fed - t_family:.1f} s, phases 27-29 {t_end - t_fed:.1f} s, "
-        f"all {t_end - t_start:.1f} s")
+        f"{t_fed - t_family:.1f} s, phases 27-29 {t_remat - t_fed:.1f} s, "
+        f"phases 30-31 {t_end - t_remat:.1f} s, all {t_end - t_start:.1f} s")
 
     kernels = [{
         "name": "writhe_map",
@@ -3620,12 +4002,22 @@ def main() -> int:
             "internvl2": fd_time["internvl2_1b_" + kind],
             "check": "pass",
         })
+    # each SSD path's run, its counts set to 0 just before it
+    ssd_paths = {f"{TRAIN_ARCH}_campaign": trained["launches"],
+                 f"{TRAIN_ARCH}_remat_step": remat[TRAIN_ARCH]["launches"],
+                 f"{TRAIN_ARCH}_sharded_f32":
+                     sharded[TRAIN_ARCH]["launches"],
+                 f"{TRAIN_ARCH}_sharded_bf16":
+                     sharded["timed"]["sharded"]["launches"]}
+    ssd_by_path = {k: v["ssd_scan"] for k, v in ssd_paths.items()}
+    ssd_bwd_by_path = {k: v["ssd_scan_bwd"] for k, v in ssd_paths.items()}
     kernels.append({
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd.py:74",
-        "launches": trained["launches"]["ssd_scan"],
+        "launches": sum(ssd_by_path.values()),
+        "launches_by_path": ssd_by_path,
         "max_abs_err": ssd_err["max_abs_err"],
         "ms": ssd_time["ms"],
         "plain_ms": ssd_time["plain_ms"],
@@ -3635,6 +4027,8 @@ def main() -> int:
         "shape": dict(sc.MAIN_SHAPE, dtype="bfloat16"),
         "launches_per_step": (trained["launches"]["ssd_scan"]
                               // TRAIN["total_steps"]),
+        "launches_per_remat_step": (remat[TRAIN_ARCH]["launches"]
+                                    ["ssd_scan"] // TRAIN_STEPS),
         "by_kernel": ssd_time["by_kernel"],
         "train_step_ms": trained["step_ms"],
         "recovery_bitwise": recovered["bitwise"],
@@ -3648,7 +4042,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd.py:74 (its gradient: the JAX "
                     "package differentiates ssd_chunked and has no Pallas "
                     "backward)",
-        "launches": trained["launches"]["ssd_scan_bwd"],
+        "launches": sum(ssd_bwd_by_path.values()),
+        "launches_by_path": ssd_bwd_by_path,
         "max_abs_err": ssd_bwd_err["max_abs_err"],
         "ms": ssd_bwd["ms"],
         "plain_ms": ssd_bwd["plain_ms"],
@@ -3668,7 +4063,9 @@ def main() -> int:
     fa_paths = {f"{ATTN_ARCH}_campaign": attn_trained["launches"],
                 f"{ATTN_ARCH}_step": attn_step["launches"],
                 f"{HUBERT_ARCH}_step": hubert["launches"],
-                f"{VLM_ARCH}_step": vlm_trained["launches"]}
+                f"{VLM_ARCH}_step": vlm_trained["launches"],
+                f"{ATTN_ARCH}_remat_step": remat[ATTN_ARCH]["launches"],
+                f"{MOE_ARCH}_sharded_f32": sharded[MOE_ARCH]["launches"]}
     fa_by_path = {k: v["flash_attention"] for k, v in fa_paths.items()}
     fa_by_path[f"{HUBERT_ARCH}_prefill"] = hubert["prefill_launches"]
     bwd_by_path = {k: v["flash_attention_bwd"] for k, v in fa_paths.items()}
@@ -3697,6 +4094,8 @@ def main() -> int:
         "max_abs_err_f32": fa_err["f32_err"],
         "launches_per_step": (attn_step["launches"]["flash_attention"]
                               // TRAIN_STEPS),
+        "launches_per_remat_step": (remat[ATTN_ARCH]["launches"]
+                                    ["flash_attention"] // TRAIN_STEPS),
         "train_step_ms": attn_step["step_ms"],
         "check": "pass",
     })
@@ -3747,7 +4146,15 @@ def main() -> int:
                         "makespan_s", "step_ms", "saves", "restores",
                         "peak_bytes")} | {"layers": ATTN_TRAIN["layers"]},
                 f"{ATTN_ARCH}_step": {k: v for k, v in attn_step.items()
-                                      if k != "launches"}}
+                                      if k != "launches"},
+                "remat": {TRAIN_ARCH: {k: v for k, v in
+                                       remat[TRAIN_ARCH].items()
+                                       if k != "launches"},
+                          ATTN_ARCH: {k: v for k, v in
+                                      remat[ATTN_ARCH].items()
+                                      if k != "launches"},
+                          "exact": remat["exact"]},
+                "sharded": sharded}
     print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,7 @@
 """Attention: GQA with chunked online softmax, and the decode paths over
 dense, ring and paged KV caches.
 
-Port of ``repro/models/attention.py`` (single device; the sharded ``dist``
-paths come with a later slice). One code path serves whole-sequence
+Port of ``repro/models/attention.py``. One code path serves whole-sequence
 forward and decode:
 
 * KV is processed in chunks with running (max, sum, acc) statistics;
@@ -211,10 +210,15 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     0 is the allocator's trash page). ``cache_index``: int32, scalar or
     (B,) per slot — count of tokens already cached. The cache tensors are
     updated in place and returned in a dict.
+
+    ``dist``: as in the reference, the whole-sequence path does not read
+    it: under a :class:`repro_torch.sharding.DistContext` the block runs
+    on the rank's local batch shard, and the kernel launches there.
     """
-    if dist is not None:
-        raise NotImplementedError("sharded attention (dist) comes with the "
-                                  "sharded slice: ROADMAP.md Queue 1, item 8")
+    if dist is not None and cache is not None:
+        raise NotImplementedError("sharded decode attention (dist with a "
+                                  "cache) comes with the last sharded "
+                                  "slice: ROADMAP.md Queue 1, item 8")
     b, s, _ = x.shape
     dt = x.dtype
     dev = x.device

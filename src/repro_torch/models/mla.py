@@ -13,7 +13,7 @@ the reference does on one device: the materialized path has a key width
 (nope + rope) other than its value width, the absorbed one attends over
 the latent (R + rope keys, R values), and no Pallas kernel backs either in
 the reference. They stay plain PyTorch on the card. The sharded reference
-routes the absorbed decode through flash-decode; that comes with the
+routes the absorbed decode through flash-decode; that comes with the last
 sharded slice (``ROADMAP.md`` Queue 1, item 8).
 
 Caches are written in place: the new token's latent and RoPE key are
@@ -93,10 +93,12 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
               dist: Any = None) -> tuple[torch.Tensor, dict | None]:
     """MLA attention block. ``cache``: {"c_kv": (B, S, R), "k_rope": (B, S,
     rope)}, written in place and returned; ``cache_index``: int32, scalar
-    or (B,) per slot."""
-    if dist is not None:
-        raise NotImplementedError("sharded MLA (dist) comes with the sharded "
-                                  "slice: ROADMAP.md Queue 1, item 8")
+    or (B,) per slot. ``dist``: the whole-sequence path does not read it
+    (the sharded block runs on the rank's local batch shard)."""
+    if dist is not None and cache is not None:
+        raise NotImplementedError("sharded MLA decode (dist with a cache) "
+                                  "comes with the last sharded slice: "
+                                  "ROADMAP.md Queue 1, item 8")
     m = cfg.mla
     b, s, _ = x.shape
     dt = x.dtype

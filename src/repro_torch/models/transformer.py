@@ -15,14 +15,26 @@ the reference runs ``lax.scan`` over that axis, the port runs a Python loop
 that indexes it. Remainder layers (``n_layers % period``) follow under
 ``"tail"``.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``dist`` (Queue 1, item 8). As in the reference, MLA has no paged cache.
+``remat`` checkpoints each period as the reference checkpoints its scan
+body (:func:`period_runner`); the remainder layers and the unembedding are
+not checkpointed. ``dist`` (a :class:`repro_torch.sharding.DistContext`)
+runs the sharded step: the embedding as the vocab-parallel island, each
+block as a region on the rank's batch shard with the MoE as the
+expert-parallel island, the activations constrained after the embedding
+and after each block, and the logits left vocab-sharded. Sharded decode
+(caches with ``dist``) comes with the last sharded slice (ROADMAP.md
+Queue 1, item 8). As in the reference, MLA has no paged cache.
 """
 from __future__ import annotations
 
-from typing import Any
+from functools import partial
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.tree import tree_map
 
 from .attention import attention_block, attention_spec, init_kv_cache
 from .config import ModelConfig
@@ -34,8 +46,19 @@ from .params import ParamSpec, stack_specs
 from .rglru import init_rglru_cache, rglru_block, rglru_spec
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
 
-_SHARDED = "sharded execution (dist) comes with the sharded slice: " \
-           "ROADMAP.md Queue 1, item 8"
+_SHARDED_DECODE = "sharded decode (dist with caches) comes with the last " \
+                  "sharded slice: ROADMAP.md Queue 1, item 8"
+
+_aten = torch.ops.aten
+# what each remat policy saves inside a period (the reference's
+# jax.checkpoint policies): "full" nothing; "dots" every matmul's output;
+# "dots_no_batch" the products without a batch dim. Everything else is
+# recomputed in the backward.
+REMAT_SAVES = {
+    "full": frozenset(),
+    "dots": frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm}),
+    "dots_no_batch": frozenset({_aten.mm, _aten.addmm}),
+}
 
 
 def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
@@ -72,28 +95,15 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """One residual block. Returns (x, new_cache, aux_loss): the MoE's
     router loss, a float32 scalar in the autograd graph, or the Python
-    float 0.0 for a block without a MoE."""
+    float 0.0 for a block without a MoE. With ``dist``, ``x`` and the
+    params are DTensors (:func:`_block_dist`)."""
     if dist is not None:
-        raise NotImplementedError(_SHARDED)
+        if cache is not None:
+            raise NotImplementedError(_SHARDED_DECODE)
+        return _block_dist(params, cfg, kind, x, dist)
     aux = 0.0
-    h = rmsnorm(params["norm1"], x, cfg.rms_eps)
-    if kind in ("attn", "local"):
-        if cfg.mla is not None:
-            y, new_cache = mla_block(params["mix"], cfg, h,
-                                     positions=positions, cache=cache,
-                                     cache_index=cache_index)
-        else:
-            y, new_cache = attention_block(params["mix"], cfg, h, kind=kind,
-                                           positions=positions, cache=cache,
-                                           cache_index=cache_index,
-                                           pages=pages)
-    elif kind == "ssd":
-        y, new_cache = ssd_block(params["mix"], cfg, h, cache=cache)
-    elif kind == "rglru":
-        y, new_cache = rglru_block(params["mix"], cfg, h, cache=cache)
-    else:
-        raise ValueError(f"unknown layer kind {kind}")
-    x = x + y
+    x = _mixer(params, cfg, kind, x, positions=positions, cache=cache,
+               cache_index=cache_index, pages=pages)
     if _has_mlp(cfg, kind):
         h = rmsnorm(params["norm2"], x, cfg.rms_eps)
         if cfg.moe is not None:
@@ -102,7 +112,101 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
         else:
             f = mlp(params["ffn"], cfg, h)
         x = x + f
-    return x, new_cache, aux
+    return x, cache, aux
+
+
+def _mixer(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
+           positions=0, cache=None, cache_index=None, pages=None,
+           reduce: Callable | None = None) -> torch.Tensor:
+    """x + the block's mixing layer (attention, MLA, SSD or RG-LRU) of its
+    first norm; caches are written in place. ``reduce`` sums a layer
+    output that is partial over the tensor-parallel ranks."""
+    h = rmsnorm(params["norm1"], x, cfg.rms_eps)
+    if kind in ("attn", "local"):
+        if cfg.mla is not None:
+            y, _ = mla_block(params["mix"], cfg, h, positions=positions,
+                             cache=cache, cache_index=cache_index)
+        else:
+            y, _ = attention_block(params["mix"], cfg, h, kind=kind,
+                                   positions=positions, cache=cache,
+                                   cache_index=cache_index, pages=pages)
+    elif kind == "ssd":
+        y, _ = ssd_block(params["mix"], cfg, h, cache=cache)
+    elif kind == "rglru":
+        y, _ = rglru_block(params["mix"], cfg, h, cache=cache)
+    else:
+        raise ValueError(f"unknown layer kind {kind}")
+    return x + (y if reduce is None else reduce(y))
+
+
+def _heads_split(cfg: ModelConfig, mix: dict, dist) -> bool:
+    """Whether a sharded attention block runs its heads tensor-parallel:
+    the rules shard the query heads over ``model`` and each rank's KV
+    heads are whole (sharded alike, or one KV head's group holds all of
+    the rank's query heads)."""
+    tp = dist.tp_axis
+    if cfg.mla is not None or dist.model_spec(mix["wq"])[1] != tp:
+        return False
+    if dist.model_spec(mix["wk"])[1] == tp:
+        return True
+    per_rank = cfg.n_heads // dist.tp_size
+    return (cfg.n_heads // cfg.n_kv_heads) % per_rank == 0
+
+
+def _rank_kv(mix: dict, cfg: ModelConfig, dist) -> dict:
+    """The rank's attention weights: its query heads' KV head cut from a
+    K/V projection the rules leave whole."""
+    wq, wk = mix["wq"], mix["wk"]
+    if wq.shape[1] == cfg.n_heads or wk.shape[1] < cfg.n_kv_heads:
+        return mix                      # one rank, or K/V sharded alike
+    group = cfg.n_heads // cfg.n_kv_heads
+    k0 = dist.axis_index(dist.tp_axis) * wq.shape[1] // group
+    return {**mix, "wk": wk[:, k0:k0 + 1], "wv": mix["wv"][:, k0:k0 + 1]}
+
+
+def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist
+                ) -> tuple[Any, None, Any]:
+    """The sharded block: the mixing layer and a dense FFN as one region
+    on the rank's batch shard (the kernels launch there on local tensors),
+    a MoE as :meth:`DistContext.moe_island`, the result constrained to the
+    batch sharding. Attention heads and MLP columns that the rules shard
+    over ``model`` stay sharded in the region (each rank computes its
+    heads or columns; one all-reduce sums the layer's output); every other
+    weight is gathered whole."""
+    from repro_torch.sharding.rules import P
+    aux = 0.0
+    moe = _has_mlp(cfg, kind) and cfg.moe is not None
+    dense = {k: v for k, v in params.items() if not (moe and k == "ffn")}
+    mix_tp = kind in ("attn", "local") and _heads_split(cfg, params["mix"],
+                                                        dist)
+    mlp_tp = "ffn" in dense and \
+        dist.model_spec(dense["ffn"]["w_down"])[0] == dist.tp_axis
+    split = {"mix": mix_tp, "ffn": mlp_tp}
+    specs = {k: tree_map(dist.model_spec if split.get(k) else lambda _: P(),
+                         v) for k, v in dense.items()}
+
+    def reduce(y):
+        return dist.psum(y, dist.tp_axis)
+
+    def region(xl, p):
+        if mix_tp:
+            p = {**p, "mix": _rank_kv(p["mix"], cfg, dist)}
+        xl = _mixer(p, cfg, kind, xl, reduce=reduce if mix_tp else None)
+        if not _has_mlp(cfg, kind):
+            return xl
+        h = rmsnorm(p["norm2"], xl, cfg.rms_eps)
+        if moe:
+            return xl, h
+        f = mlp(p["ffn"], cfg, h)
+        return xl + (reduce(f) if mlp_tp else f)
+
+    if moe:
+        x, h = dist.dense(region, [x], dense, n_out=2, param_specs=specs)
+        f, aux = dist.moe_island(params["ffn"], cfg, h)
+        x = x + f
+    else:
+        x = dist.dense(region, [x], dense, param_specs=specs)
+    return dist.constrain_activation(x), None, aux
 
 
 # ---------------------------------------------------------------------------
@@ -145,17 +249,51 @@ def _index(tree: Any, i: int) -> Any:
 
 
 def _apply_period(params_p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                  positions, caches_p, cache_index, decode=False, pages=None):
+                  positions, caches_p, cache_index, dist=None, decode=False,
+                  pages=None):
     """Apply one period (len(layer_pattern) blocks). caches_p: dict per slot."""
     aux = 0.0
     for i, kind in enumerate(cfg.layer_pattern):
         c = caches_p.get(str(i)) if caches_p is not None else None
         x, _, a = block_apply(params_p[str(i)], cfg, kind, x,
                               positions=positions, cache=c,
-                              cache_index=cache_index, decode=decode,
-                              pages=pages)
+                              cache_index=cache_index, dist=dist,
+                              decode=decode, pages=pages)
         aux = aux + a
     return x, aux
+
+
+def _save_policy(saves: frozenset, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in saves \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def period_runner(remat: str) -> Callable:
+    """:func:`_apply_period`, checkpointed as ``remat`` says: "none" runs
+    it as it is; "full" saves only the period's inputs
+    (``torch.utils.checkpoint``); "dots" and "dots_no_batch" also save the
+    outputs of the products in :data:`REMAT_SAVES` (selective
+    checkpointing). An unknown name raises ``KeyError``, as the
+    reference's policy lookup does. The hand kernels are autograd
+    functions that no policy can see into: every policy runs their forward
+    again in the backward."""
+    if remat == "none":
+        return _apply_period
+    saves = REMAT_SAVES[remat]
+    context_fn = None
+    if saves:
+        context_fn = partial(create_selective_checkpoint_contexts,
+                             partial(_save_policy, saves))
+
+    def run(params_p, cfg, x, **kw):
+        if not torch.is_grad_enabled():
+            return _apply_period(params_p, cfg, x, **kw)
+        fn = partial(_apply_period, cfg=cfg, **kw)
+        if context_fn is None:
+            return checkpoint(fn, params_p, x=x, use_reentrant=False)
+        return checkpoint(fn, params_p, x=x, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
 
 
 def _project(params: dict, cfg: ModelConfig, embeds: torch.Tensor
@@ -180,10 +318,56 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     return x, 0
 
 
+def _embed_inputs_dist(params: dict, cfg: ModelConfig, batch: dict, dist
+                       ) -> tuple[Any, int]:
+    """:func:`_embed_inputs` on the mesh: token rows through the
+    vocab-parallel embedding, a frontend's projection as a region."""
+    kind = cfg.frontend.kind if cfg.frontend is not None else None
+    front = {"frontend": params["frontend"]} if kind is not None else None
+    if kind == "audio_frames":
+        return dist.dense(lambda e, p: _project(p, cfg, e),
+                          [batch["embeds"]], front), 0
+    x = dist.embed(params["embed"]["embedding"], cfg, batch["tokens"])
+    if kind == "vit_patches" and batch.get("embeds") is not None:
+        n_prefix = batch["embeds"].shape[1]
+        return dist.dense(
+            lambda e, xt, p: torch.cat([_project(p, cfg, e), xt], dim=1),
+            [batch["embeds"], x], front), n_prefix
+    return x, 0
+
+
+def _head_dist(params: dict, cfg: ModelConfig, x, n_prefix: int, dist,
+               return_hidden: bool):
+    """The final norm and the unembedding as one region: logits (B, S, V)
+    vocab-sharded over ``model`` where it divides the vocab."""
+    from repro_torch.sharding.rules import P
+    tp = dist.tp_axis if cfg.padded_vocab % dist.tp_size == 0 else None
+    bax = dist.batch_pspec(3, x.shape[0])[0]
+    head = {"final_norm": params["final_norm"]}
+    specs = {"final_norm": {"scale": P(None)}}
+    if not return_hidden:
+        if cfg.tie_embeddings:
+            head["embedding"] = params["embed"]["embedding"]
+            specs["embedding"] = P(tp, None)
+        else:
+            head["unembed"] = params["embed"]["unembed"]
+            specs["unembed"] = P(None, tp)
+
+    def region(xl, p):
+        xl = rmsnorm(p["final_norm"], xl, cfg.rms_eps)
+        if n_prefix:
+            xl = xl[:, n_prefix:]  # loss/logits over text positions only
+        return xl if return_hidden else unembed(p, cfg, xl)
+
+    out = P(bax, None, None) if return_hidden else P(bax, None, tp)
+    return dist.local(region, [x], [P(bax, None, None)], [out], head, specs)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             caches: dict | None = None,
             cache_index: torch.Tensor | None = None,
             dist: Any = None,
+            remat: str = "none",
             return_hidden: bool = False,
             pages: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
@@ -196,23 +380,34 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     "tail": {...}} or None; decode writes them in place and returns the same
     tree. ``pages``: (B, pages_per_slot) int32 page table when ``caches``
     came from :func:`init_paged_caches` (shared by every paged layer).
+    ``remat``: "none" | "full" | "dots" | "dots_no_batch"
+    (:func:`period_runner`). ``dist``: params and batch are DTensors placed
+    by ``dist``; the logits come back as a DTensor, vocab-sharded.
     Returns (logits (B, S, padded_vocab) over the text positions only for
     a VLM, caches or None, aux_loss).
     """
-    if dist is not None:
-        raise NotImplementedError(_SHARDED)
     decode = caches is not None
-    x, n_prefix = _embed_inputs(params, cfg, batch)
+    if dist is not None and decode:
+        raise NotImplementedError(_SHARDED_DECODE)
+    run_period = period_runner(remat)
+    if dist is None:
+        x, n_prefix = _embed_inputs(params, cfg, batch)
+        index = _index
+    else:
+        x, n_prefix = _embed_inputs_dist(params, cfg, batch, dist)
+        x = dist.constrain_activation(x)
+        index = dist.index
     positions: torch.Tensor | int = cache_index if decode else 0
     aux_total = 0.0
 
     if cfg.n_periods > 0:
         caches_p = caches.get("periods") if decode else None
         for i in range(cfg.n_periods):
-            x, a = _apply_period(
-                _index(params["periods"], i), cfg, x, positions=positions,
+            x, a = run_period(
+                index(params["periods"], i), cfg, x, positions=positions,
                 caches_p=_index(caches_p, i) if caches_p is not None else None,
-                cache_index=cache_index, decode=decode, pages=pages)
+                cache_index=cache_index, dist=dist, decode=decode,
+                pages=pages)
             aux_total = aux_total + a
 
     if cfg.n_remainder:
@@ -222,17 +417,21 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             c = caches_t.get(str(i)) if caches_t is not None else None
             x, _, a = block_apply(params["tail"][str(i)], cfg, kind, x,
                                   positions=positions, cache=c,
-                                  cache_index=cache_index, decode=decode,
-                                  pages=pages)
+                                  cache_index=cache_index, dist=dist,
+                                  decode=decode, pages=pages)
             aux_total = aux_total + a
 
+    # a MoE's aux stays in the graph (the router's gradient); a model
+    # without one gives a float32 zero
+    dev = (x.to_local() if dist is not None else x).device
+    aux_total = aux_total.float() if isinstance(aux_total, torch.Tensor) \
+        else torch.tensor(aux_total, dtype=torch.float32, device=dev)
+    if dist is not None:
+        return _head_dist(params, cfg, x, n_prefix, dist, return_hidden), \
+            None, aux_total
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if n_prefix:
         x = x[:, n_prefix:]  # loss/logits over text positions only (VLM)
-    # a MoE's aux stays in the graph (the router's gradient); a model
-    # without one gives a float32 zero
-    aux_total = aux_total.float() if isinstance(aux_total, torch.Tensor) \
-        else torch.tensor(aux_total, dtype=torch.float32)
     if return_hidden:
         return x, (caches if decode else None), aux_total
     logits = unembed(params["embed"], cfg, x)

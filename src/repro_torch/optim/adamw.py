@@ -95,22 +95,43 @@ def _v_update_and_corr(v_leaf, g2, b2, cfg):
     return full.to(mdt), full
 
 
+def update_leaf(p, g, m, v, w, *, scale, bc1, bc2, lr,
+                cfg: OptimizerConfig):
+    """One parameter's AdamW step: (new param, new m, new v, new master)
+    from the param, its gradient, its moments and its master copy ``w``
+    (the param itself when ``master_dtype`` is ``"none"``)."""
+    mdt = torch_dtype(cfg.moment_dtype)
+    gf = g.float() * scale
+    mf = m.float() * cfg.b1 + gf * (1 - cfg.b1)
+    vv, denom = _v_update_and_corr(v, gf.square(), cfg.b2, cfg)
+    upd = (mf / bc1) / (torch.sqrt(denom / bc2) + cfg.eps)
+    wf = w.float()
+    if cfg.weight_decay > 0 and p.dim() >= 2:
+        upd = upd + cfg.weight_decay * wf
+    wf = wf - lr * upd
+    master = wf.to(torch_dtype(cfg.master_dtype)) \
+        if cfg.master_dtype != "none" else wf.to(p.dtype)
+    return wf.to(p.dtype), mf.to(mdt), vv, master
+
+
 @torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: dict, cfg: OptimizerConfig,
-                 lr: torch.Tensor) -> tuple[Any, dict, dict]:
-    """Returns (new_params, new_state, stats)."""
-    mdt = torch_dtype(cfg.moment_dtype)
+                 lr: torch.Tensor, *, grad_norm: torch.Tensor | None = None,
+                 leaf_fn=update_leaf) -> tuple[Any, dict, dict]:
+    """Returns (new_params, new_state, stats). ``grad_norm``: the global
+    gradient norm when the caller has it (a sharded step sums its shards
+    across ranks); ``leaf_fn``: :func:`update_leaf` or a caller's wrapper
+    of it (the sharded step's runs it on each rank's shards)."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.grad_clip > 0:
         scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                                 1.0)
     else:
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
 
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** count.float()
-    bc2 = 1.0 - b2 ** count.float()
+    bc1 = 1.0 - cfg.b1 ** count.float()
+    bc2 = 1.0 - cfg.b2 ** count.float()
     masters = state.get("master", params)
 
     flat_p = leaves(params)
@@ -121,19 +142,12 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: OptimizerConfig,
 
     new_p, new_m, new_v, new_master = [], [], [], []
     for p, g, m, v, w in zip(flat_p, flat_g, flat_m, flat_v, flat_master):
-        gf = g.float() * scale
-        mf = m.float() * b1 + gf * (1 - b1)
-        vv, denom = _v_update_and_corr(v, gf.square(), b2, cfg)
-        upd = (mf / bc1) / (torch.sqrt(denom / bc2) + cfg.eps)
-        wf = w.float()
-        if cfg.weight_decay > 0 and p.dim() >= 2:
-            upd = upd + cfg.weight_decay * wf
-        wf = wf - lr * upd
-        new_master.append(wf.to(torch_dtype(cfg.master_dtype))
-                          if cfg.master_dtype != "none" else wf.to(p.dtype))
-        new_p.append(wf.to(p.dtype))
-        new_m.append(mf.to(mdt))
-        new_v.append(vv)
+        p2, m2, v2, w2 = leaf_fn(p, g, m, v, w, scale=scale, bc1=bc1,
+                                 bc2=bc2, lr=lr, cfg=cfg)
+        new_p.append(p2)
+        new_m.append(m2)
+        new_v.append(v2)
+        new_master.append(w2)
 
     state2 = {"m": unflatten_as(params, new_m),
               "v": unflatten_as(params, new_v),

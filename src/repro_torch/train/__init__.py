@@ -3,8 +3,8 @@
 from .loss import lm_loss
 from .step import (TrainState, init_train_state, make_decode_caches,
                    make_prefill_step, make_serve_step, make_train_step,
-                   train_state_shapes)
+                   shard_train_state, train_state_shapes)
 
 __all__ = ["TrainState", "init_train_state", "lm_loss", "make_decode_caches",
            "make_prefill_step", "make_serve_step", "make_train_step",
-           "train_state_shapes"]
+           "shard_train_state", "train_state_shapes"]

@@ -1,6 +1,6 @@
 """LM losses. Port of ``repro/train/loss.py``: the plain path, per-token
-log-probs with a gather (the vocab-parallel path comes with ``dist``,
-``ROADMAP.md`` Queue 1, item 8)."""
+log-probs with a gather (the vocab-parallel path of a sharded step is
+:meth:`repro_torch.sharding.DistContext.vocab_parallel_loss`)."""
 from __future__ import annotations
 
 import torch

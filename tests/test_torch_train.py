@@ -47,6 +47,7 @@ from repro_torch.data import batch_at
 from repro_torch.optim import (OptimizerConfig, adamw_init, adamw_update,
                                lr_at_step)
 from repro_torch.train import (TrainState, init_train_state, lm_loss,
+                               make_prefill_step, make_serve_step,
                                make_train_step, train_state_shapes)
 from repro_torch.tree import leaves, paths
 
@@ -180,11 +181,17 @@ def test_train_steps_match_reference(arch, microbatch):
 
 
 def test_train_step_rejects_what_is_not_ported():
+    """remat and dist are ported for the train step (tests/test_torch_remat.py,
+    tests/test_torch_sharded_step.py); dist in the prefill and serve steps
+    is not yet."""
     cfg, o = configs.smoke_config("mamba2_130m"), OptimizerConfig()
+    make_train_step(cfg, o, remat="full")
+    with pytest.raises(KeyError):
+        make_train_step(cfg, o, remat="unknown")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, o, remat="full")
+        make_prefill_step(cfg, dist=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, o, dist=object())
+        make_serve_step(cfg, dist=object())
 
 
 def test_init_and_shapes_agree_with_reference():
