@@ -134,10 +134,11 @@ card, and times it beside its bound. Phases:
 22. one train step of gemma3-1b at full width cut to 2 layers (one local,
    one global) in float32 on the card and on the CPU, through both
    kernels: loss, grad norm and updated params agree;
-23. recurrentgemma-2b at full width in bf16 served through
+23. recurrentgemma-2b at full width cut to 14 of its 26 layers in bf16
+   served through
    ``serve_pipeline``: 8 requests of 96-160 prompt tokens, 16 new tokens
    each, one generate task, 8 slots, max_len 4096 (2048-row rings): exactly
-   8 dense flash-decode launches (G = 10) and no paged one a step, no
+   4 dense flash-decode launches (G = 10) and no paged one a step, no
    plain attention on the card; makespan, tokens/s, median step, device
    busy, device ms a step by kernel, peak memory, the weights bound;
 24. recurrentgemma-2b at full width in float32: the dense (max_len 4096)
@@ -145,9 +146,9 @@ card, and times it beside its bound. Phases:
    engine's; the dense flash engine's decode logits against the
    whole-sequence forward (the RG-LRU scan, flash attention at G = 10,
    window 2048) on the same tokens, relative 2e-4;
-25. moonshot-v1-16b-a3b at full width (64 experts) cut to 24 of its 48
+25. moonshot-v1-16b-a3b at full width (64 experts) cut to 12 of its 48
    layers in bf16, served as in 23 but paged (max_len 1024, pages of 64):
-   exactly 24 paged launches and no dense one a step, beside the weights
+   exactly 12 paged launches and no dense one a step, beside the weights
    bound of a dropless step; then at full width cut to 8 layers in
    float32: the paged
    flash engine's tokens equal the chunked engine's, and ``moe_capacity``
@@ -173,9 +174,10 @@ card, and times it beside its bound. Phases:
    card, finite logits) beside the operations bound; then three train
    steps at 2 x 4096 frames (48 + 48 launches a step) and one float32
    step at full width cut to 2 layers on the card and on the CPU;
-29. internvl2-1b at full width and depth (24 layers, 14 heads on 2 KV
-   heads of 64: G = 7) in bf16 served as in 23 (exactly 24 dense
-   flash-decode launches and no paged one a step) beside the weights
+29. internvl2-1b at full width (14 heads on 2 KV heads of 64: G = 7) cut
+   to 12 of its 24 layers in bf16 served as in 23 (exactly
+   12 dense flash-decode launches and no paged one a step) beside the
+   weights
    bound; at full width cut to 4 layers in float32 the dense and paged
    flash engines' tokens equal the chunked engine's; three train steps
    at 2 x 4096 text tokens and 256 patches (24 + 24 launches a step) and
@@ -199,10 +201,37 @@ card, and times it beside its bound. Phases:
    plain version on the card; then three bf16 mamba2-130m steps at 8 x
    2048 sharded beside three unsharded (DTensor's host overhead), every
    sharded loss within 1e-5 relative of the unsharded one and the params
-   after the last step compared.
+   after the last step compared;
+32. the last sharded slice, on a world of one as 31: (a) the
+   sequence-parallel decode island's kernel path: gemma3-1b's global
+   decode (8 slots, 4096 cache rows, 1170 valid) cut into 2, 4 and 8
+   sequence shards, each one flash-decode launch with its log-sum-exp and
+   global positions (shards past every position give zeros and -inf),
+   against the plain version, merged as the island merges and held to the
+   whole cache's attention (bf16 at the decode tolerance against the plain
+   float32 attention, float32 against the float64 oracle); the
+   log-sum-exp launch timed beside the plain launch on the whole cache;
+   (b) gemma3-1b at full width cut to 8 layers, float32: a 512-token
+   prefill then 32 greedy tokens through the sharded prefill and serve
+   steps under ``flash_decode`` against the unsharded steps (tokens equal,
+   logits within 1e-4; over the decode steps every layer's bounded decode
+   launch asserted and no log-sum-exp launch, since on a world of one
+   every cache is cut on its KV heads and no layer takes the island, whose
+   merge over ranks is checked on the CPU worlds of the tests only; no
+   plain version on the card), then the bf16 sharded serve step's median
+   beside the unsharded one's; (c) moonshot-v1-16b-a3b at full width cut to 4
+   layers under ``flash_decode`` and ``weight_stationary``: 16 greedy
+   tokens equal to the unsharded steps'; (d) the ``chunked_ce`` train step
+   of gemma3-1b at full width and depth (2 x 4096, bf16, ``remat="full"``;
+   50 + 26 flash-attention launches a step asserted) beside phase 30's
+   remat step, peak and median, and at one period in float32 its loss
+   within 1e-5 relative of the unsharded step's; (e) the ``fp8_gather``
+   step of moonshot at one layer, 2 x 512, float32: its loss within 1e-5
+   relative of the unsharded step on expert weights cast to e4m3 and
+   back, and within 2e-2 of the unquantised loss.
 
 The last four lines of its output are the families line (JSON: phases
-21, 23-31), the kernels line (JSON), the card's name and power limit as
+21, 23-32), the kernels line (JSON), the card's name and power limit as
 nvidia-smi gives them, and the result line (JSON).
 It exits non-zero, and prints no result, when CUDA is unavailable, when the
 repository's sources are missing, or when any phase fails. Every cluster
@@ -2859,7 +2888,11 @@ FAMILY_LOGITS_REL = 2e-4
 MOE_REL = 1e-5
 # moonshot's depth served in bf16 (of 48: its host-bound step scales with
 # the layers it runs), and in its float32 check
-MOE_SERVE_LAYERS, MOE_EXACT_LAYERS = 24, 8
+MOE_SERVE_LAYERS, MOE_EXACT_LAYERS = 12, 8
+# serving depths cut to win back phase 32's time (host-bound steps scale
+# with the layers): recurrentgemma-2b 14 of 26 (four 3-layer periods and
+# the tail), internvl2-1b 12 of 24
+RG_SERVE_LAYERS, VLM_SERVE_LAYERS = 14, 12
 MOE_TOKENS = 64           # tokens of the one-layer MoE check
 
 
@@ -3081,31 +3114,29 @@ EXACT_TRAIN = dict(batch=2, seq=768)  # the float32 card-against-CPU step
 VLM_EXACT_LAYERS = 4                # internvl2-1b's depth in its token check
 
 
-def model_ops(cfg, params, b: int, s_text: int, n_prefix: int = 0,
+def model_ops(cfg, b: int, s_text: int, n_prefix: int = 0,
               train: bool = False) -> float:
     """Operations of one forward over b sequences of n_prefix frontend
     positions (patches) and s_text positions, or of a train step (train):
-    every weight product at 2 operations a weight a position (the layers'
-    on every position; the frontend's on its inputs: every frame of an
-    audio model, the patches of a VLM; the unembedding's on the text), the
-    attention products over the live (query head, key) pairs as
-    attention_bound counts them (4 D forward, 10 D backward); an SSD
-    layer's scan is not counted. A backward doubles the weight products
-    (input and weight gradients)."""
-    def weights(tree) -> int:
-        return sum(weights(v) if isinstance(v, dict) else v.numel()
-                   for k, v in tree.items()
-                   if isinstance(v, dict) or k.startswith("w"))
+    the weight products, plus the attention products over the live (query
+    head, key) pairs as attention_bound counts them (4 D forward, 10 D
+    backward); an SSD layer's scan is not counted. The weight products are
+    the dry-run's ``model_flops`` (``repro_torch.launch.dryrun``: 2
+    operations an active parameter a position forward, 6 to train) less
+    what it counts that is no product on those positions: an untied
+    model's input table (a lookup), the unembedding on the frontend's
+    positions and a VLM's frontend on the text's (an audio model's
+    frontend runs on every frame)."""
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import model_flops
     s = n_prefix + s_text
-    emb = params["embed"]
-    unembed = emb["unembed"] if "unembed" in emb else emb["embedding"]
-    front = params.get("frontend")
-    front_pos = (0 if front is None else b * s if cfg.frontend.kind
-                 == "audio_frames" else b * n_prefix)
-    products = 2 * (b * s * (weights(params.get("periods", {}))
-                             + weights(params.get("tail", {})))
-                    + b * s_text * unembed.numel()
-                    + front_pos * (front["w"].numel() if front else 0))
+    products = model_flops(cfg, Shape("step", s, b,
+                                      "train" if train else "prefill"))
+    table = cfg.padded_vocab * cfg.d_model
+    not_products = table * (n_prefix + (0 if cfg.tie_embeddings else s))
+    if cfg.frontend is not None and cfg.frontend.kind != "audio_frames":
+        not_products += (cfg.frontend.input_dim + 1) * cfg.d_model * s_text
+    products -= (6 if train else 2) * b * not_products
     attn = 0
     for kind in cfg.layer_kinds():
         if kind == "ssd":
@@ -3115,7 +3146,7 @@ def model_ops(cfg, params, b: int, s_text: int, n_prefix: int = 0,
             attn += attention_bound(b, s, s, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim, not cfg.encoder_only,
                                     window, 2, backward=backward)[2]["ops"]
-    return products * (3 if train else 1) + attn
+    return products + attn
 
 
 def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
@@ -3172,8 +3203,7 @@ def phase_train_steps(label, cfg, run, counted, train_step_mod, trainer,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     share = _device_share({"prof": prof, "wall": wall}, PROFILE_TRAIN_STEPS)
-    ops = model_ops(cfg, state.params, run["batch"], run["seq"], n_prefix,
-                    train=True)
+    ops = model_ops(cfg, run["batch"], run["seq"], n_prefix, train=True)
     del state, batches
     _free()
     step_ms = statistics.median(times) * 1e3
@@ -3337,7 +3367,7 @@ def phase_encoder(fa, models, configs, train_step_mod, plain_watch, smi
     assert logits.shape == (ENC_BATCH, ENC_SEQ, cfg.padded_vocab), \
         logits.shape
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
-    ops = model_ops(cfg, params, ENC_BATCH, ENC_SEQ)
+    ops = model_ops(cfg, ENC_BATCH, ENC_SEQ)
     bound_ms = ops / BF16_FLOP_S * 1e3
     ms = statistics.median(times) * 1e3
     log(f"  make_prefill_step on {ENC_BATCH} x {ENC_SEQ} frames of "
@@ -3692,6 +3722,435 @@ def phase_sharded(fa, ssd, configs, train_step_mod, trainer, data, optim,
     return out
 
 
+# -- the last sharded slice (phase 32) ----------------------------------------
+
+# (b) gemma3-1b at phase 10's depth: a prefill, then greedy tokens
+SHARD_SERVE = dict(layers=SERVE_LAYERS, batch=8, prompt=512, new=32)
+# (c) moonshot-v1-16b-a3b at full width, 4 of its 48 layers
+WS_SERVE = dict(layers=4, batch=8, prompt=64, new=16)
+# (d) float32 exactness of the chunked_ce step: one gemma3-1b period
+CE_EXACT = dict(layers=6, batch=2, seq=1024)
+SHARD_LOGITS_ATOL = 1e-4   # the sharded serve step's float32 logits
+SHARD_LOSS_REL = 1e-5      # the chunked_ce loss
+# the fp8 loss against its emulation: below the emulation's own distance
+# from the unquantised loss (4.57e-7 relative on the card), which the
+# check asserts, so that it tells a quantised gather from a plain one
+FP8_EMU_REL = 1e-7
+FP8_REL = 2e-2             # tests/island_check_opt.py: fp8 against plain
+
+
+def _lse_bound(b, kh, g, d, valid_pairs, s) -> tuple[float, str, dict]:
+    """_fd_bound of the dense decode, plus the log-sum-exp written (B, H)
+    float32."""
+    ms, by, parts = _fd_bound(valid_pairs, kh, g, d, d, b, b * s, 2)
+    extra = b * kh * g * 4
+    t_bytes = (parts["bytes"] + extra) / HBM_BYTES_S * 1e3
+    t_ops = parts["ops"] / FP32_FLOP_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_bytes, t_ops), by, {"bytes": parts["bytes"] + extra,
+                                     "ops": parts["ops"]}
+
+
+def phase_island_kernel(fd, fdc, smi) -> dict:
+    """(a) The island's kernel path: gemma3-1b's global decode (B=8, K=1,
+    G=4, D=256) over 4096 cache rows with 1170 valid, cut into tp sequence
+    shards; each shard one launch with its log-sum-exp and global
+    positions (unbounded), shards past every position among them; against
+    the plain version on the same inputs, then merged as the island merges
+    and held to the attention over the whole cache: bf16 against the plain
+    float32 attention at the decode tolerance, float32 against the float64
+    oracle. Then the log-sum-exp launch timed against the plain launch and
+    the plain version on the whole cache (bf16, unbounded)."""
+    case = fdc.island_case()
+    oracle = torch.from_numpy(fdc.oracle(case)).cuda()
+    lse_oracle = torch.from_numpy(fdc.lse_oracle(case)).cuda()
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, FD_ATOL_BF16),
+                       (torch.float32, FD_ATOL_F32)):
+        name = str(dtype).replace("torch.", "")
+        t = _fd_inputs(case, dtype)
+        whole = fd.flash_decode_ref(t["q"].float(), t["k"].float(),
+                                    t["v"].float(), t["qpos"], t["kpos"],
+                                    bounded=False)
+        for tp in fdc.ISLAND_TP:
+            outs, lses, empty = [], [], 0
+            before = (fd.flash_decode.launches, fd.flash_decode.lse_launches)
+            for k, v, kpos in fdc.shard_rows(case, tp):
+                kk = torch.from_numpy(k).to("cuda", dtype)
+                vv = torch.from_numpy(v).to("cuda", dtype)
+                kp = torch.from_numpy(kpos).cuda()
+                o, lse = fd.flash_decode(t["q"], kk, vv, t["qpos"], kp,
+                                         bounded=False, return_lse=True)
+                po, pl = fd.flash_decode_ref(t["q"], kk, vv, t["qpos"], kp,
+                                             bounded=False, return_lse=True)
+                if bool(torch.isneginf(pl).all()):
+                    empty += 1
+                    assert bool((o == 0).all()) and \
+                        bool(torch.isneginf(lse).all())
+                else:
+                    torch.testing.assert_close(o.float(), po.float(),
+                                               atol=tol, rtol=tol)
+                    torch.testing.assert_close(lse, pl, atol=1e-4, rtol=0)
+                outs.append(o)
+                lses.append(lse)
+            torch.cuda.synchronize()
+            assert (fd.flash_decode.launches,
+                    fd.flash_decode.lse_launches) == (before[0],
+                                                      before[1] + tp)
+            assert empty >= 1, "a shard past every position"
+            merged = fd.merge_lse(torch.stack(outs), torch.stack(lses),
+                                  lambda t: t.amax(0), lambda t: t.sum(0))
+            assert bool(torch.isfinite(merged).all())
+            want = whole if dtype == torch.bfloat16 else oracle
+            torch.testing.assert_close(merged, want, atol=tol, rtol=tol)
+            e = float((merged - want).abs().max())
+            lse_e = float((torch.logsumexp(torch.stack(lses), 0)
+                           - lse_oracle).abs().max())
+            worst = max(worst, e)
+            log(f"  {name} tp={tp}: {tp} log-sum-exp launches, {empty} "
+                f"shard(s) with no valid key (zeros, -inf), merged max |diff| "
+                f"{e:.3g} against {'the plain float32 attention' if dtype == torch.bfloat16 else 'the float64 oracle'} "
+                f"(limit {tol:g}); log-sum-exp of the shards' against the "
+                f"float64 oracle {lse_e:.3g}  ok")
+    t = _fd_inputs(case, torch.bfloat16)
+
+    def call(lse: bool):
+        return lambda: fd.flash_decode(t["q"], t["k"], t["v"], t["qpos"],
+                                       t["kpos"], bounded=False,
+                                       return_lse=lse)
+    ms = _median_flushed(call(True), 50, queued=True)
+    no_lse_ms = _median_flushed(call(False), 50, queued=True)
+    plain_ms = _median_flushed(
+        lambda: fd.flash_decode_ref(t["q"], t["k"], t["v"], t["qpos"],
+                                    t["kpos"], bounded=False,
+                                    return_lse=True), 5, warmup=1,
+        queued=True)
+    b, s = case["k"].shape[:2]
+    valid = fdc.valid_keys(case)
+    bound_ms, bound_by, parts = _lse_bound(b, 1, 4, 256, valid, s)
+    log(f"  the whole cache, bf16, unbounded: log-sum-exp launch {ms:.4f} ms,"
+        f" without it {no_lse_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {parts['bytes'] / 1e6:.2f} MB, "
+        f"{valid} valid slot-keys); no PyTorch call returns the "
+        f"log-sum-exp ({smi})")
+    return {"max_abs_err": worst, "ms": ms, "no_lse_ms": no_lse_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": {"B": b, "S": s, "K": 1, "G": 4, "D": 256,
+                      "valid_slot_keys": valid, "dtype": "bfloat16"}}
+
+
+def _place(dist, models, cfg, params, caches, b):
+    """params placed by the rules, caches by cache_sharding_tree."""
+    from repro_torch.launch.specs import cache_sharding_tree
+    from repro_torch.models.params import param_shapes
+    from repro_torch.sharding import params_axes
+    p = dist.distribute(params, dist.param_shardings(
+        param_shapes(models.model_spec(cfg), next(_leaves(params)).dtype),
+        params_axes(cfg)))
+    c = dist.distribute(caches, cache_sharding_tree(
+        dist, cfg, _map(lambda x: x.to("meta"), caches), b))
+    return p, c
+
+
+def _greedy(train_step_mod, models, cfg, params, prompt, new, dist=None,
+            watch=None, counts=()):
+    """A prefill of ``prompt`` (B, P), then ``new - 1`` decode steps with
+    per-slot positions: (every step's logits on the host, tokens (B, new),
+    decode step times in s, launches of ``counts`` over the decode steps,
+    plain-version calls seen there)."""
+    b, p = prompt.shape
+    dt = next(_leaves(params)).dtype
+    caches = models.init_caches(cfg, b, p + new, dt, "cuda")
+    if dist is not None:
+        params, caches = _place(dist, models, cfg, params, caches, b)
+    prefill = train_step_mod.make_prefill_step(cfg, dist=dist)
+    serve = train_step_mod.make_serve_step(cfg, dist=dist)
+    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits = logits.masked_fill(torch.arange(
+            cfg.padded_vocab, device="cuda") >= cfg.vocab_size, -1e30)
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    rows, toks, times = [logits.float().cpu()], [nxt], []
+    torch.cuda.synchronize()
+    with (watch if watch is not None else contextlib.nullcontext({})) as seen:
+        for fn, attr in counts:
+            setattr(fn, attr, 0)
+        for t in range(new - 1):
+            pos = torch.full((b,), p + t, dtype=torch.int32, device="cuda")
+            t0 = time.perf_counter()
+            logits, nxt, caches = serve(params, nxt[:, None], caches, pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rows.append(logits.float().cpu())
+            toks.append(nxt)
+        launches = [getattr(fn, attr) for fn, attr in counts]
+    out = (rows, torch.stack(toks, 1).cpu(), times, launches, dict(seen))
+    del params, caches
+    return out
+
+
+def _sharded_serving(fd, models, configs, train_step_mod, dist_cls, mesh,
+                     plain_targets, arch, run, flags, smi) -> dict:
+    """(b), (c): ``arch`` at full width cut to ``run['layers']`` layers,
+    float32, decode_kernel "flash": the sharded prefill and serve steps
+    (``flags``) against the unsharded ones from the same random weights:
+    greedy tokens equal, every step's logits within SHARD_LOGITS_ATOL; over
+    the sharded decode steps every attention layer launches the bounded
+    decode kernel and no plain version runs on the card. On a world of one
+    every cache is cut on its KV heads (model = 1 divides them), so no
+    layer takes the sequence-parallel island: no log-sum-exp launch."""
+    cfg = configs.get_config(arch).with_(n_layers=run["layers"],
+                                         dtype="float32",
+                                         decode_kernel="flash")
+    _, params = _serving_model(models, configs, cfg, torch.float32)
+    rng = np.random.RandomState(7)
+    prompt = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (run["batch"], run["prompt"])).astype(
+            np.int32)).cuda()
+    counts = ((fd.flash_decode, "launches"),
+              (fd.flash_decode, "lse_launches"))
+    want = _greedy(train_step_mod, models, cfg, params, prompt, run["new"])
+    dist = dist_cls(mesh, flags=frozenset(flags))
+    got = _greedy(train_step_mod, models, cfg, params, prompt, run["new"],
+                  dist, plain_calls_on_card(plain_targets), counts)
+    del params
+    _free()
+    steps = run["new"] - 1
+    kinds = cfg.layer_kinds()
+    assert got[3] == [len(kinds) * steps, 0], (got[3], len(kinds))
+    assert not got[4], f"plain versions ran on the card: {got[4]}"
+    assert torch.equal(got[1], want[1]), "the sharded greedy tokens differ"
+    err = max(float((a - b).abs().max()) for a, b in zip(got[0], want[0]))
+    assert err <= SHARD_LOGITS_ATOL, err
+    log(f"  {cfg.name}, {cfg.n_layers} layers, float32, {run['batch']} x "
+        f"{run['prompt']} prompt tokens then {run['new']} greedy, flags "
+        f"{sorted(flags)}: tokens equal to the unsharded steps', logits max "
+        f"|diff| {err:.3g} (limit {SHARD_LOGITS_ATOL:g}); decode launches "
+        f"{got[3][0]} over {steps} steps, {got[3][1]} with log-sum-exp (every "
+        f"cache cut on its KV heads); no plain version on the card "
+        f"({smi})  ok")
+    return {"logits_err": err, "tokens_equal": True,
+            "launches": {"flash_decode": got[3][0],
+                         "flash_decode_lse": got[3][1]},
+            "step_ms_f32": statistics.median(got[2]) * 1e3,
+            "unsharded_step_ms_f32": statistics.median(want[2]) * 1e3}
+
+
+def _serving_bf16(models, configs, train_step_mod, dist, run) -> dict:
+    """(b) bf16: the sharded serve step's median beside the unsharded
+    step's, same weights and prompt."""
+    cfg = configs.get_config(SERVE_ARCH).with_(n_layers=run["layers"],
+                                               decode_kernel="flash")
+    _, params = _serving_model(models, configs, cfg)
+    rng = np.random.RandomState(8)
+    prompt = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (run["batch"], run["prompt"])).astype(
+            np.int32)).cuda()
+    out = {}
+    for name, d in (("unsharded", None), ("sharded", dist)):
+        rows, toks, times, _, _ = _greedy(train_step_mod, models, cfg, params,
+                                          prompt, run["new"], d)
+        out[name] = {"step_ms": statistics.median(times) * 1e3,
+                     "times_ms": [x * 1e3 for x in times], "tokens": toks}
+    del params
+    _free()
+    same = torch.equal(out["sharded"]["tokens"], out["unsharded"]["tokens"])
+    for v in out.values():
+        del v["tokens"]
+    out["tokens_equal"] = same
+    return out
+
+
+def _ce_train(cfg, ocfg, train_step_mod, dist, batches, remat, watch,
+              counts) -> dict:
+    """One warm-up and len(batches) - 1 steps of the sharded chunked_ce
+    step from a fresh state (seed 0): median, launches, and the peak over
+    the timed steps (the counter reset after the warm-up, so that placing
+    the state, a copy on a world of one, is not in it)."""
+    state = train_step_mod.shard_train_state(
+        train_step_mod.init_train_state(
+            cfg, ocfg, torch.Generator(device="cuda").manual_seed(0),
+            "cuda"), cfg, ocfg, dist)
+    step = train_step_mod.make_train_step(cfg, ocfg, dist=dist, remat=remat)
+    feed = [dist.shard_batch(b) for b in batches]
+    state, _ = step(state, feed[0])
+    torch.cuda.synchronize()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    with watch as plain:
+        for fn, attr, _ in counts:
+            setattr(fn, attr, 0)
+        for b in feed[1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = [getattr(fn, attr) for fn, attr, _ in counts]
+    peak = torch.cuda.max_memory_allocated()
+    del state, feed
+    _free()
+    n = len(batches) - 1
+    assert launches == [per * n for _, _, per in counts], launches
+    assert not plain, f"plain versions ran on the card: {plain}"
+    assert all(np.isfinite(losses)), losses
+    return {"step_ms": statistics.median(times) * 1e3,
+            "times_ms": [x * 1e3 for x in times], "losses": losses,
+            "peak_bytes": peak, "launches": launches}
+
+
+def _one_step_loss(train_step_mod, cfg, ocfg, state, batch, dist=None):
+    step = train_step_mod.make_train_step(cfg, ocfg, dist=dist)
+    if dist is not None:
+        state = train_step_mod.shard_train_state(state, cfg, ocfg, dist)
+        batch = dist.shard_batch(batch)
+    _, m = step(state, batch)
+    return float(m["loss"])
+
+
+def phase_sharded_serve(fd, fa, fdc, models, configs, train_step_mod, trainer,
+                        data, optim, plain_targets, remat_step, smi) -> dict:
+    """Phase 32 on a world of one process (NCCL from an in-memory store, a
+    (data=1, model=1) mesh): (a) the island's kernel path; (b) gemma3-1b's
+    sharded prefill and decode under flash_decode, float32 exactness and
+    the bf16 step beside the unsharded one; (c) moonshot's
+    weight-stationary decode; (d) the chunked_ce step at gemma3-1b's full
+    depth beside phase 30's remat step, and its float32 exactness; (e) the
+    fp8 expert gather's step against its emulation and the plain step."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.sharding import DistContext
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"island": phase_island_kernel(fd, fdc, smi)}
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        mesh = make_smoke_mesh(1, 1, device_type="cuda")
+        serve_plain = plain_targets + [(fd, "flash_decode_ref"),
+                                       (fd, "flash_decode_paged_ref")]
+        out["serve"] = _sharded_serving(
+            fd, models, configs, train_step_mod, DistContext, mesh,
+            serve_plain, SERVE_ARCH, SHARD_SERVE, ("flash_decode",), smi)
+        dist = DistContext(mesh, flags=frozenset({"flash_decode"}))
+        bf = _serving_bf16(models, configs, train_step_mod, dist,
+                           SHARD_SERVE)
+        out["serve"]["bf16"] = bf
+        log(f"  {SERVE_ARCH}, {SHARD_SERVE['layers']} layers, bf16: sharded "
+            f"serve step median {bf['sharded']['step_ms']:.2f} ms against "
+            f"{bf['unsharded']['step_ms']:.2f} ms unsharded (host clock, "
+            f"synchronised; {SHARD_SERVE['new'] - 1} steps each), tokens "
+            f"{'equal' if bf['tokens_equal'] else 'not equal'} ({smi})")
+        out["ws"] = _sharded_serving(
+            fd, models, configs, train_step_mod, DistContext, mesh,
+            serve_plain, MOE_ARCH, WS_SERVE,
+            ("flash_decode", "weight_stationary"), smi)
+        # (d) chunked_ce: the 26-layer step, bf16, remat="full"
+        ce = DistContext(mesh, flags=frozenset({"chunked_ce"}))
+        gcfg = configs.get_config(ATTN_ARCH)
+        ocfg = trainer._ocfg_from_params({})
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+            gcfg, 0, s, batch=ATTN_TRAIN["batch"],
+            seq=ATTN_TRAIN["seq"]).items()} for s in range(1 + TRAIN_STEPS)]
+        g_fwd = remat_launches(gcfg, ("attn", "local"), "full")
+        step = _ce_train(gcfg, ocfg, train_step_mod, ce, batches, "full",
+                         plain_calls_on_card(plain_targets),
+                         ((fa.flash_attention, "launches", g_fwd),
+                          (fa.flash_attention, "bwd_launches",
+                           gcfg.n_layers)))
+        del batches
+        out["chunked_ce"] = step
+        log(f"  {gcfg.name} at full width and depth, bf16, "
+            f"{ATTN_TRAIN['batch']} x {ATTN_TRAIN['seq']}, remat='full', "
+            f"chunked_ce (sharded, world of one): median "
+            f"{step['step_ms']:.2f} ms ({[round(x, 2) for x in step['times_ms']]})"
+            f" against phase 30's {remat_step['step_ms']:.2f} ms; peak "
+            f"{step['peak_bytes'] / 1e9:.2f} GB against "
+            f"{remat_step['peak_bytes'] / 1e9:.2f} GB; flash-attention "
+            f"launches {step['launches'][0]} + {step['launches'][1]} over "
+            f"{TRAIN_STEPS} steps; losses "
+            f"{[round(x, 4) for x in step['losses']]}; no plain version on "
+            f"the card ({smi})  ok")
+        # (d) float32 exactness at one period
+        cfg = gcfg.with_(n_layers=CE_EXACT["layers"], dtype="float32")
+        eo = _exact_opt(optim)
+        state = train_step_mod.init_train_state(
+            cfg, eo, torch.Generator(device="cuda").manual_seed(3), "cuda")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+            cfg, 1, 0, batch=CE_EXACT["batch"],
+            seq=CE_EXACT["seq"]).items()}
+        want = _one_step_loss(train_step_mod, cfg, eo, state, batch)
+        got = _one_step_loss(train_step_mod, cfg, eo, state, batch, ce)
+        rel = abs(got - want) / abs(want)
+        assert rel <= SHARD_LOSS_REL, (got, want)
+        out["chunked_ce"]["f32_rel"] = rel
+        log(f"  {cfg.name}, {cfg.n_layers} layers, float32, "
+            f"{CE_EXACT['batch']} x {CE_EXACT['seq']}: chunked_ce loss "
+            f"{got:.6f} against {want:.6f} unsharded (relative {rel:.3g}, "
+            f"limit {SHARD_LOSS_REL:g})  ok")
+        del state, batch
+        _free()
+        # (e) fp8_gather: moonshot, 1 layer, 2 x 512, float32
+        run = SHARD_EXACT[MOE_ARCH]
+        cfg = configs.get_config(MOE_ARCH).with_(n_layers=run["layers"],
+                                                 dtype="float32")
+        state = train_step_mod.init_train_state(
+            cfg, eo, torch.Generator(device="cuda").manual_seed(3), "cuda")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(
+            cfg, 1, 0, batch=run["batch"], seq=run["seq"]).items()}
+        plain = _one_step_loss(train_step_mod, cfg, eo, state, batch)
+        fp8 = DistContext(mesh, flags=frozenset({"fp8_gather"}))
+        got = _one_step_loss(train_step_mod, cfg, eo, state, batch, fp8)
+
+        def quantised(tree):
+            return {k: (quantised(v) if isinstance(v, dict) else
+                        v.to(torch.float8_e4m3fn).to(v.dtype)
+                        if k in ("w_gate", "w_up", "w_down") and v.dim() == 4
+                        else v) for k, v in tree.items()}
+        q_state = train_step_mod.TrainState(quantised(state.params),
+                                            state.opt, state.step)
+        emulated = _one_step_loss(train_step_mod, cfg, eo, q_state, batch)
+        e_rel = abs(got - emulated) / abs(emulated)
+        p_rel = abs(got - plain) / abs(plain)
+        gap = abs(emulated - plain) / abs(emulated)
+        assert gap > FP8_EMU_REL, (emulated, plain)
+        assert e_rel <= FP8_EMU_REL and p_rel <= FP8_REL, \
+            (got, emulated, plain)
+        # the gather alone: its forward the e4m3 cast, its backward the
+        # cotangent rounded to e4m3 (a world of one reduces over nothing)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        shape = (8, cfg.d_model, cfg.moe.d_expert)
+        w = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda") * 10.0 ** (
+            torch.rand(shape, generator=gen, device="cuda") * 5 - 4)
+        w.requires_grad_(True)
+        gathered = fp8.gather_weight(w, fp8.fsdp_axes, 1)
+        (gw,) = torch.autograd.grad(gathered, [w], g)
+
+        def e4m3(t):
+            return t.to(torch.float8_e4m3fn).to(t.dtype)
+        assert torch.equal(gathered, e4m3(w.detach()))
+        assert torch.equal(gw, e4m3(g)) and not torch.equal(gw, g)
+        out["fp8_gather"] = {"loss": got, "emulated": emulated,
+                             "plain": plain, "emulated_rel": e_rel,
+                             "plain_rel": p_rel, "emulation_gap": gap,
+                             "gather_exact": True}
+        log(f"  {cfg.name}, {cfg.n_layers} layer, float32, {run['batch']} x "
+            f"{run['seq']}: fp8_gather loss {got:.6f}, emulation (experts "
+            f"cast to float8_e4m3fn and back, unsharded) {emulated:.6f} "
+            f"(relative {e_rel:.3g}, limit {FP8_EMU_REL:g}, below the "
+            f"emulation's {gap:.3g} from the unquantised loss), unquantised "
+            f"{plain:.6f} (relative {p_rel:.3g}, limit {FP8_REL:g}); the "
+            f"gather alone on {shape}: forward the e4m3 cast, gradient the "
+            f"cotangent rounded to e4m3, both exact ({smi})  ok")
+        del state, q_state, batch
+        _free()
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an "
@@ -3866,12 +4325,13 @@ def main() -> int:
                         (fd, "flash_decode_paged_ref"),
                         (attention_mod, "chunked_attention")])
     log(f"== 23. recurrentgemma-2b serving: KsaCluster.run_campaign("
-        f"serve_pipeline) at full width, bf16, dense flash decode ({smi})")
+        f"serve_pipeline) at full width cut to {RG_SERVE_LAYERS} layers, "
+        f"bf16, dense flash decode ({smi})")
     rg_served = phase_family_serving(
         fd, models, configs, serve, KsaCluster, ResourceProfile, RG_ARCH,
-        dict(max_len=4096),
-        configs.get_config(RG_ARCH).layer_kinds().count("local"), 0,
-        plain_calls_on_card(plain_serving), smi)
+        dict(max_len=4096), configs.get_config(RG_ARCH).with_(
+            n_layers=RG_SERVE_LAYERS).layer_kinds().count("local"), 0,
+        plain_calls_on_card(plain_serving), smi, layers=RG_SERVE_LAYERS)
     log(f"== 24. recurrentgemma-2b exactness at full width in float32 ({smi})")
     rg_exact = phase_rg_exactness(fa, models, configs, serve, smi)
     log(f"== 25. moonshot-v1-16b-a3b serving: KsaCluster.run_campaign("
@@ -3904,13 +4364,14 @@ def main() -> int:
                                  optim, tree, HUBERT_ARCH,
                                  plain_calls_on_card(plain_targets), smi)
     log(f"== 29. {VLM_ARCH} serving: KsaCluster.run_campaign("
-        f"serve_pipeline) at full width and depth, bf16, dense flash decode "
-        f"at G = 7; exactness at {VLM_EXACT_LAYERS} layers in float32; "
-        f"{TRAIN_STEPS} train steps ({smi})")
+        f"serve_pipeline) at full width cut to {VLM_SERVE_LAYERS} layers, "
+        f"bf16, dense flash decode at G = 7; exactness at "
+        f"{VLM_EXACT_LAYERS} layers in float32; {TRAIN_STEPS} train steps "
+        f"at full depth ({smi})")
     vlm_served = phase_family_serving(
         fd, models, configs, serve, KsaCluster, ResourceProfile, VLM_ARCH,
-        dict(max_len=1024), configs.get_config(VLM_ARCH).n_layers, 0,
-        plain_calls_on_card(plain_serving), smi)
+        dict(max_len=1024), VLM_SERVE_LAYERS, 0,
+        plain_calls_on_card(plain_serving), smi, layers=VLM_SERVE_LAYERS)
     vlm_exact = phase_vlm_exactness(models, configs, serve, smi)
     vlm_trained = phase_family_train(fa, configs, train_step_mod, trainer,
                                      data, optim, tree, VLM_ARCH,
@@ -3927,13 +4388,23 @@ def main() -> int:
         f"steps beside it ({smi})")
     sharded = phase_sharded(fa, ssd, configs, train_step_mod, trainer, data,
                             optim, tree, plain_targets, smi)
+    t_last = time.perf_counter()
+    log(f"== 32. the last sharded slice on a world of one (NCCL, (data=1, "
+        f"model=1) mesh): the flash-decode island's kernel path; sharded "
+        f"prefill and decode of {SERVE_ARCH} (flash_decode) and "
+        f"{MOE_ARCH} (weight_stationary); the chunked_ce and fp8_gather "
+        f"train steps ({smi})")
+    last = phase_sharded_serve(fd, fa, fdc, models, configs, train_step_mod,
+                               trainer, data, optim, plain_targets,
+                               remat[ATTN_ARCH], smi)
     t_end = time.perf_counter()
     faulthandler.cancel_dump_traceback_later()
     log(f"command time: phases 1-6 {t_serve - t_start:.1f} s, phases 7-11 "
         f"{t_train - t_serve:.1f} s, phases 12-17 {t_attn - t_train:.1f} s, "
         f"phases 18-22 {t_family - t_attn:.1f} s, phases 23-26 "
         f"{t_fed - t_family:.1f} s, phases 27-29 {t_remat - t_fed:.1f} s, "
-        f"phases 30-31 {t_end - t_remat:.1f} s, all {t_end - t_start:.1f} s")
+        f"phases 30-31 {t_last - t_remat:.1f} s, phase 32 "
+        f"{t_end - t_last:.1f} s, all {t_end - t_start:.1f} s")
 
     kernels = [{
         "name": "writhe_map",
@@ -3973,6 +4444,11 @@ def main() -> int:
                    RG_ARCH: rg_served["launches"][name],
                    MOE_ARCH: moe_served["launches"][name],
                    VLM_ARCH: vlm_served["launches"][name]}
+        if name == "flash_decode":      # phase 32's sharded decode
+            by_path[f"{SERVE_ARCH}_sharded"] = \
+                last["serve"]["launches"]["flash_decode"]
+            by_path[f"{MOE_ARCH}_weight_stationary"] = \
+                last["ws"]["launches"]["flash_decode"]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4002,6 +4478,22 @@ def main() -> int:
             "internvl2": fd_time["internvl2_1b_" + kind],
             "check": "pass",
         })
+        if name == "flash_decode":
+            # the log-sum-exp output (phase 32 (a)): the local attention of
+            # the sequence-parallel decode island, which runs only where a
+            # cache is cut on its sequence over model > 1; on a world of
+            # one every cache is cut on its KV heads, so the main path
+            # launches none (no PyTorch call returns the log-sum-exp)
+            island = last["island"]
+            kernels[-1]["lse"] = {
+                "launches": last["serve"]["launches"]["flash_decode_lse"]
+                + last["ws"]["launches"]["flash_decode_lse"],
+                "max_abs_err": island["max_abs_err"],
+                "ms": island["ms"], "no_lse_ms": island["no_lse_ms"],
+                "plain_ms": island["plain_ms"],
+                "bound_ms": island["bound_ms"],
+                "bound_by": island["bound_by"], "library_ms": None,
+                "shape": island["shape"]}
     # each SSD path's run, its counts set to 0 just before it
     ssd_paths = {f"{TRAIN_ARCH}_campaign": trained["launches"],
                  f"{TRAIN_ARCH}_remat_step": remat[TRAIN_ARCH]["launches"],
@@ -4154,7 +4646,9 @@ def main() -> int:
                                       remat[ATTN_ARCH].items()
                                       if k != "launches"},
                           "exact": remat["exact"]},
-                "sharded": sharded}
+                "sharded": sharded,
+                "sharded_serve": {k: v for k, v in last.items()
+                                  if k != "island"}}
     print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

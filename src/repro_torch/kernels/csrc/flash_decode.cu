@@ -21,6 +21,14 @@
 //   p_j = exp(scale * q.k[j, kh] - max), over the keys j whose position kp
 //   satisfies kp >= 0, kp <= q_pos[b] and, with a window, kp > q_pos - window.
 // A slot with no such key writes exact zeros (l = 0 gives acc / 1e-37 = 0).
+// When asked (a non-null lse), the dense kernel also writes each head's
+// log-sum-exp, lse[b, 0, hq] = log sum_j exp(scale * q.k[j, kh]) in float32
+// natural units, -inf with no attended key: what a caller needs to merge
+// the outputs of several launches over disjoint key ranges (the sequence-
+// sharded decode). It is written where the output is finalised: by the
+// single block when there is one split, in the cluster's merge otherwise;
+// a block that attends nothing (bounded past q_pos, or every key masked)
+// finalises with l = 0 like any other.
 // Softmax statistics and the (G, Dv) accumulator stay in float32 (scores in
 // log2 units, exp2f); the output is in q's type. Unlike the Pallas kernel,
 // p is not rounded to the value type before the p.V product (the XLA twin
@@ -106,6 +114,7 @@ constexpr int PORTABLE_CLUSTER = 8;
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
@@ -116,6 +125,7 @@ struct Params {
   const int* meta;    // dense: k_pos (B, S) | paged: table (B, n_pages);
                       // contiguous, -1 = invalid / unbound
   void* out;          // (B, 1, K * G, Dv), contiguous
+  float* lse;         // (B, 1, K * G) float32 log-sum-exp, or null
   int S;              // rows per slot (paged: n_pages * page_size)
   int K, G, Dk, Dv;  // G: query heads per KV head
   int page_size, n_pages, paged;
@@ -330,6 +340,13 @@ struct Scatter {
   }
 };
 
+// A head's log-sum-exp in natural units from its running max mx (in log2
+// units, as the scores are kept) and its normalizer ls: mx ln 2 + ln ls,
+// and -inf where no key was attended (ls = 0).
+__device__ __forceinline__ float head_lse(float mx, float ls) {
+  return ls > 0.0f ? fmaf(mx, LN2, logf(ls)) : -__int_as_float(0x7f800000);
+}
+
 // The merge of a cluster's n_split partials (m, l at part_ml, acc at
 // part_a in each block's shared memory): after a cluster barrier, block
 // `rank` writes its slice of the G * Dv outputs, each from the partials of
@@ -338,7 +355,7 @@ struct Scatter {
 template <typename T>
 __device__ __forceinline__ void merge_cluster(const Params& p, int G,
                                               float* part_ml, float* part_a,
-                                              T* og, int rank) {
+                                              T* og, float* lse, int rank) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int Dv = p.Dv, GD = G * Dv, ns = p.n_split;
@@ -371,6 +388,8 @@ __device__ __forceinline__ void merge_cluster(const Params& p, int G,
       }
     }
     og[i] = Elem<T>::from_f(a / fmaxf(ls, 1e-37f));
+    // the head's log-sum-exp, once: by the thread that holds its column 0
+    if (lse != nullptr && i == g * Dv) lse[g] = head_lse(mx, ls);
   }
   cluster.sync();
 }
@@ -672,6 +691,10 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
     }
     part_ml[2 * tid] = mx;
     part_ml[2 * tid + 1] = ls;
+    // one split: the block's statistics are the head's (an empty one, with
+    // no tile or every key masked, gives ls = 0 and -inf)
+    if (p.n_split == 1 && p.lse != nullptr)
+      p.lse[pair * p.G + g0 + tid] = head_lse(mx, ls);
   }
   __syncthreads();
 
@@ -689,7 +712,10 @@ __global__ void __launch_bounds__(THREADS, MAXG == 1 ? 8
     else
       part_a[i] = a;
   }
-  if (p.n_split > 1) merge_cluster<T>(p, G, part_ml, part_a, og, sp);
+  if (p.n_split > 1)
+    merge_cluster<T>(p, G, part_ml, part_a, og,
+                     p.lse != nullptr ? p.lse + pair * p.G + g0 : nullptr,
+                     sp);
 }
 
 // The attribute is raised once per device and kernel (a bit a device).
@@ -792,11 +818,12 @@ int dispatch(int dtype, Params p, int B, void* stream) {
 // after the launch (0 on success).
 extern "C" int flash_decode_launch(
     int dtype, const void* q, const void* k, const void* v, const int* q_pos,
-    const int* k_pos, void* out, int B, int S, int K, int G, int Dk, int Dv,
+    const int* k_pos, void* out, float* lse, int B, int S, int K, int G,
+    int Dk, int Dv,
     int split_rows, int n_split, long long k_s0, long long k_s1,
     long long k_s2, long long v_s0, long long v_s1, long long v_s2,
     float scale, int window, int bounded, int vec, void* stream) {
-  Params p = {q, k, v, q_pos, k_pos, out, S, K, G, Dk, Dv, 1, 0, 0, 0,
+  Params p = {q, k, v, q_pos, k_pos, out, lse, S, K, G, Dk, Dv, 1, 0, 0, 0,
               split_rows, n_split, k_s0, k_s1, k_s2, v_s0, v_s1, v_s2,
               scale, window, bounded, vec, 0, 0, 0, 0};
   return dispatch(dtype, p, B, stream);
@@ -819,7 +846,8 @@ extern "C" int flash_decode_paged_launch(
   if ((page_size & (page_size - 1)) == 0)
     for (shift = 0; (1 << shift) < page_size; ++shift) {
     }
-  Params p = {q, pool_k, pool_v, q_pos, table, out, page_size * n_pages, K,
+  Params p = {q, pool_k, pool_v, q_pos, table, out, nullptr,
+              page_size * n_pages, K,
               G, Dk, Dv, page_size, n_pages, 1, shift,
               page_size * split_pages, n_split, k_s0, k_s1, k_s2, v_s0, v_s1,
               v_s2, scale, window, 1, vec, 0, 0, 0, 0};

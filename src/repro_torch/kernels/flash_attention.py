@@ -389,9 +389,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor launches the kernels through :class:`FlashAttentionFn`
     (float32 scores only); a CPU tensor takes :func:`flash_attention_plain`
-    at ``kv_chunk`` and ``score_dtype``."""
+    at ``kv_chunk`` and ``score_dtype``, and so does a ``meta`` tensor
+    (shapes only: what the dry-run counts operations on)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only, no launch
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, kv_chunk=kv_chunk,
                                      score_dtype=score_dtype)

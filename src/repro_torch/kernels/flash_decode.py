@@ -31,6 +31,12 @@ switch. After a launch the wrapper's ``.last_plan`` holds what it gave the
 kernel: (splits, tiles or pages a split, grid). ``decode_attention`` and
 ``decode_attention_paged``, the names the model calls as in the reference,
 are the same functions.
+
+The dense kernel can also return each head's log-sum-exp (``return_lse``):
+the sequence-parallel decode of the sharded serve step launches it on each
+rank's slice of a sequence-sharded cache and merges the slices' outputs by
+their log-sum-exps (:func:`merge_lse`, over stacked slices on one device
+or over the ranks).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import ctypes
 import functools
 import math
 import threading
+from typing import Callable
 
 import torch
 
@@ -61,7 +68,7 @@ def _library() -> ctypes.CDLL:
         lib = load("flash_decode")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_decode_launch.argtypes = (
-            [i32] + [ptr] * 6 + [i32] * 8 + [i64] * 6
+            [i32] + [ptr] * 7 + [i32] * 8 + [i64] * 6
             + [ctypes.c_float, i32, i32, i32, ptr])
         lib.flash_decode_launch.restype = i32
         lib.flash_decode_paged_launch.argtypes = (
@@ -74,10 +81,12 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _count(fn, plan: tuple[int, int, tuple[int, int, int]]) -> None:
-    """One launch of ``fn``'s kernel, given ``plan``."""
+def _count(fn, plan: tuple[int, int, tuple[int, int, int]],
+           attr: str = "launches") -> None:
+    """One launch of ``fn``'s kernel, given ``plan``, counted in
+    ``fn.<attr>``."""
     with _count_lock:
-        fn.launches += 1
+        setattr(fn, attr, getattr(fn, attr) + 1)
         fn.last_plan = plan
 
 
@@ -207,29 +216,39 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k_positions: torch.Tensor | None = None, *,
                  window: int | None = None, block_k: int = 128,
                  scale: float | None = None,
-                 bounded: bool = True) -> torch.Tensor:
+                 bounded: bool = True, return_lse: bool = False):
     """q: (B, 1, H, Dk); k: (B, S, K, Dk); v: (B, S, K, Dv) -> (B, 1, H, Dv)
-    in q's dtype.
+    in q's dtype; with ``return_lse``, (out, lse), lse (B, 1, H) float32:
+    each head's log-sum-exp of its attended scores (natural units), -inf
+    where it attends no key (and out is zeros there).
 
     ``q_positions``: (B,) int absolute position of each slot's query.
     ``k_positions``: (B, S) int cache-row positions, -1 = invalid; defaults
     to ``arange(S)``. ``bounded`` (only when row index == position, i.e.
-    not a ring) stops at the tile that holds the query's position.
-    ``block_k`` is the plain version's block; the kernel's tile is its own.
+    not a ring or a sequence shard) stops at the tile that holds the
+    query's position. ``block_k`` is the plain version's block; the
+    kernel's tile is its own. A launch with ``return_lse`` is counted in
+    ``flash_decode.lse_launches``, the others in ``.launches``; a ``meta``
+    tensor takes the plain version (shapes only, for counting operations)
+    and launches nothing.
     """
     b, h, kh, g = _check(q, k, v, "flash_decode")
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return flash_decode_ref(q, k, v, q_positions, k_positions,
                                 window=window, block_k=block_k, scale=scale,
-                                bounded=bounded)
+                                bounded=bounded and dev.type == "cpu",
+                                return_lse=return_lse)
     if dev.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {dev}")
     _check_cuda(q, k, v, "flash_decode")
     s, dk, dv = k.shape[1], k.shape[3], v.shape[3]
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, 1, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if b == 0 or s == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-math.inf)) if return_lse else out
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     q = q.contiguous()
@@ -249,14 +268,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch("flash_decode_launch", [
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             b, s, kh, g, dk, dv, per * TILE, n, *k.stride()[:3],
             *v.stride()[:3], float(scale), _window(window), int(bounded),
             _vec(k, v), stream])
-    _count(flash_decode, (n, per, (n, kh * gh, b)))
-    return out
+    _count(flash_decode, (n, per, (n, kh * gh, b)),
+           "lse_launches" if return_lse else "launches")
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0
+flash_decode.lse_launches = 0
 flash_decode.last_plan = None
 
 
@@ -265,10 +287,12 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_positions: torch.Tensor | None = None, *,
                      window: int | None = None, block_k: int = 128,
                      scale: float | None = None,
-                     bounded: bool = True) -> torch.Tensor:
+                     bounded: bool = True, return_lse: bool = False):
     """Plain version of :func:`flash_decode`: the split-KV online softmax of
     the reference's ``flash_decode_xla``, block by block. ``bounded`` runs
-    ``ceil((max(q_positions) + 1) / block_k)`` blocks instead of all."""
+    ``ceil((max(q_positions) + 1) / block_k)`` blocks instead of all.
+    ``return_lse`` adds each head's log-sum-exp, ``m + log(l)`` of the
+    final statistics, -inf where ``l = 0``."""
     b, sq, h, dk = q.shape
     assert sq == 1
     _, s, kh, _ = k.shape
@@ -309,7 +333,12 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qh, k[:, blk].float(), v[:, blk].float(), mask, scale,
             m_run, l_run, acc)
     out = acc / torch.clamp_min(l_run[..., None], 1e-37)
-    return out.reshape(b, 1, h, dv).to(q.dtype)
+    out = out.reshape(b, 1, h, dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_run > 0, m_run + torch.log(l_run),
+                      torch.full_like(l_run, -math.inf))
+    return out, lse.reshape(b, 1, h)
 
 
 def _online_softmax_block(qh, kc, vc, mask, scale, m_run, l_run, acc):
@@ -333,6 +362,30 @@ def _online_softmax_block(qh, kc, vc, mask, scale, m_run, l_run, acc):
 decode_attention = flash_decode
 
 
+def lse_weights(lse: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``exp(lse - m)``: a partial's weight against the max ``m`` of the
+    partials' log-sum-exps; a partial with no attended key (``lse = -inf``)
+    weighs 0, also where every partial is empty (``m = -inf``, which would
+    give ``exp(-inf + inf) = nan``)."""
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.exp(lse - m)
+
+
+def merge_lse(outs: torch.Tensor, lses: torch.Tensor, amax: Callable,
+              total: Callable) -> torch.Tensor:
+    """The attention over the union of disjoint key ranges from each
+    range's (out, lse) -> (B, 1, H, Dv) float32: one max of the lses
+    (``amax``), then one sum (``total``) of the weights ``exp(lse - max)``
+    and one of the weighted outputs, the weights' sum clamped at 1e-37 as
+    the reference clamps it. The sequence-parallel decode island
+    (:meth:`repro_torch.sharding.DistContext.decode_attention`) passes the
+    max and sum over the ``model`` ranks, each rank holding one range;
+    ranges stacked on dim 0 of one tensor take ``amax(0)`` and ``sum(0)``."""
+    w = lse_weights(lses, amax(lses))
+    o = total(outs.float() * w[..., None])
+    return o / torch.clamp_min(total(w), 1e-37)[..., None]
+
+
 # ---------------------------------------------------------------------------
 # paged cache
 # ---------------------------------------------------------------------------
@@ -352,9 +405,10 @@ def flash_decode_paged(q: torch.Tensor, pool_k: torch.Tensor,
     CPU tensor takes :func:`flash_decode_paged_ref`."""
     b, h, kh, g = _check(q, pool_k, pool_v, "flash_decode_paged")
     dev = q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return flash_decode_paged_ref(q, pool_k, pool_v, q_positions,
-                                      page_table, window=window, scale=scale)
+                                      page_table, window=window, scale=scale,
+                                      bounded=dev.type == "cpu")
     if dev.type != "cuda":
         raise ValueError(f"flash_decode_paged runs on cuda or cpu, not "
                          f"{dev}")

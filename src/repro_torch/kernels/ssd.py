@@ -456,9 +456,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     A CUDA tensor launches the kernels through :class:`SSDScanFn` (their own
     chunk is 64 steps, which the outputs and gradients do not depend on
     beyond rounding); a CPU tensor takes :func:`ssd_scan_plain` at
-    ``chunk``."""
+    ``chunk``, and so does a ``meta`` tensor (shapes only: what the dry-run
+    counts operations on)."""
     _check(x, dt, a, bmat, cmat, h0)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: shapes only, no launch
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")

@@ -1,6 +1,6 @@
-"""Launchers: the production mesh and the train step's per-cell knobs and
-input specs. Port of ``repro/launch`` (the dry-run comes with the last
-sharded slice)."""
+"""Launchers: the production mesh, every cell's step and input specs
+(:mod:`.specs`), and the dry-run (:mod:`.dryrun`). Port of
+``repro/launch``."""
 from .mesh import (make_production_mesh, make_smoke_mesh, mesh_axes,
                    smoke_axes)
 

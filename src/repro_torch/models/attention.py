@@ -78,12 +78,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_chunk: int = 1024,
                       k_valid: torch.Tensor | None = None,
                       scale: float | None = None,
+                      return_stats: bool = False,
                       score_dtype: torch.dtype = torch.float32):
     """q: (B, Sq, H, Dk); k: (B, Sk, K, Dk); v: (B, Sk, K, Dv), H % K == 0.
 
     ``k_positions``: (B, Sk) absolute positions of cache rows (ring caches);
     default is ``arange(Sk)``. ``k_valid``: (B, Sk) filled-row mask.
-    Returns (B, Sq, H, Dv); accumulates in float32.
+    Returns (B, Sq, H, Dv); accumulates in float32. ``return_stats``: also
+    the running max and normalizer, (B, Sq, H) float32 each, so that a
+    caller can merge partial attentions over key shards (the
+    sequence-parallel decode island); the banded path is not taken then.
     """
     b, sq, h, dh = q.shape
     _, sk, kh, _ = k.shape
@@ -112,7 +116,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # banded fast path: whole-sequence sliding-window attention touches only
     # the KV band [q_chunk_start - window, q_chunk_end).
     if (window is not None and causal and sq > 1 and sk == sq and sk > c
-            and pad == 0 and dv == dh):
+            and pad == 0 and dv == dh and not return_stats):
         return _banded_local_attention(qh, k, v, q_pos, window=window,
                                        chunk=c, scale=scale, sq=sq)
 
@@ -147,7 +151,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv
         m_run = m_new
     out = acc / torch.clamp_min(l_run[..., None], 1e-37)
-    return out.reshape(b, sq, h, dv).to(q.dtype)
+    out = out.reshape(b, sq, h, dv).to(q.dtype)
+    if return_stats:
+        return out, m_run.reshape(b, sq, h), l_run.reshape(b, sq, h)
+    return out
 
 
 def _banded_local_attention(qh: torch.Tensor, k: torch.Tensor,
@@ -199,7 +206,8 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                     cache: dict | None = None,
                     cache_index: torch.Tensor | None = None,
                     dist: Any = None,
-                    pages: torch.Tensor | None = None
+                    pages: torch.Tensor | None = None,
+                    shard: Any = None
                     ) -> tuple[torch.Tensor, dict | None]:
     """Projections + RoPE + attention (+ KV-cache update for decode).
 
@@ -214,11 +222,17 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``dist``: as in the reference, the whole-sequence path does not read
     it: under a :class:`repro_torch.sharding.DistContext` the block runs
     on the rank's local batch shard, and the kernel launches there.
+    ``shard``: the cache inside a sharded block's region
+    (:class:`repro_torch.sharding.context.CacheShard`): ``cache`` holds the
+    rank's local shards. A cache cut over ``model`` on its KV heads is
+    attended locally (the rank's heads) as on one device: there is nothing
+    to merge. One cut on its sequence is written only where the rank holds
+    the rows, and attended either by the sequence-parallel island
+    (``DistContext.decode_attention``) under ``flash_decode`` for one new
+    token and no ring, as the reference dispatches
+    (``repro/models/attention.py:296-303``), or gathered whole and then
+    attended as on one device.
     """
-    if dist is not None and cache is not None:
-        raise NotImplementedError("sharded decode attention (dist with a "
-                                  "cache) comes with the last sharded "
-                                  "slice: ROADMAP.md Queue 1, item 8")
     b, s, _ = x.shape
     dt = x.dtype
     dev = x.device
@@ -249,6 +263,7 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         return y, None
 
     assert cache_index is not None
+    start = cache_index         # a Python int where the caller has one
     cache_index = torch.as_tensor(cache_index, dtype=torch.int32, device=dev)
     per_slot = cache_index.dim() == 1  # continuous batching: (B,) positions
 
@@ -259,7 +274,9 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         return y, cache
 
     ck, cv = cache["k"], cache["v"]
-    s_cache = ck.shape[1]
+    # a sequence-sharded cache: this rank's rows [r0, r0 + n) of s_cache
+    r0, s_cache = shard.rows if shard is not None else (0, ck.shape[1])
+    n = ck.shape[1]
     is_ring = window is not None and s_cache == window
     cdt = ck.dtype
     if is_ring:
@@ -267,52 +284,84 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         take = min(s, window)
         steps = torch.arange(s - take, s, dtype=torch.int32, device=dev)
         if per_slot:
-            rows = torch.arange(b, device=dev)[:, None]
             slots = ((cache_index[:, None] + steps[None, :]) % window).long()
-            ck[rows, slots] = k[:, s - take:].to(cdt)
-            cv[rows, slots] = v[:, s - take:].to(cdt)
             t_new = (cache_index + s)[:, None]                  # (B, 1)
         else:
             slots = ((cache_index + steps) % window).long()
-            ck[:, slots] = k[:, s - take:].to(cdt)
-            cv[:, slots] = v[:, s - take:].to(cdt)
             t_new = (cache_index + s).reshape(1, 1).expand(b, 1)
+        _store(ck, cv, k[:, s - take:], v[:, s - take:], slots, per_slot,
+               r0, n == s_cache)
         # row j holds position t_new - 1 - ((t_new - 1 - j) mod window).
         j = torch.arange(window, dtype=torch.int32, device=dev)[None, :]
         k_positions = t_new - 1 - torch.remainder(t_new - 1 - j, window)
         k_valid = k_positions >= 0
     else:
         if per_slot:
-            rows = torch.arange(b, device=dev)[:, None]
             slots = (cache_index[:, None] +
                      torch.arange(s, dtype=torch.int32, device=dev)).long()
-            ck[rows, slots] = k.to(cdt)
-            cv[rows, slots] = v.to(cdt)
+            _store(ck, cv, k, v, slots, True, r0, n == s_cache)
             end = (cache_index + s)[:, None]
         else:
-            start = int(cache_index)
-            ck[:, start:start + s] = k.to(cdt)
-            cv[:, start:start + s] = v.to(cdt)
+            start = start if isinstance(start, int) else int(cache_index)
+            lo, hi = max(start, r0), min(start + s, r0 + n)
+            if lo < hi:          # the rows of [start, start + s) held here
+                ck[:, lo - r0:hi - r0] = k[:, lo - start:hi - start].to(cdt)
+                cv[:, lo - r0:hi - r0] = v[:, lo - start:hi - start].to(cdt)
             end = (cache_index + s).reshape(1, 1).expand(b, 1)
         k_positions = torch.arange(s_cache, dtype=torch.int32,
                                    device=dev).expand(b, s_cache)
         k_valid = k_positions < end
-    if cfg.decode_kernel == "flash" and s == 1 and per_slot:
-        # serving hot path: the flash-decode kernel. The -1-invalid position
-        # encoding folds k_valid into k_positions; ring caches (row !=
-        # position) disable the occupancy bound.
-        from repro_torch.kernels.flash_decode import decode_attention
-        out = decode_attention(
-            q, ck.to(dt), cv.to(dt), cache_index,
-            torch.where(k_valid, k_positions, -1), window=window,
-            bounded=not is_ring)
+    if (shard is not None and shard.seq is not None
+            and shard.has("flash_decode") and s == 1 and not is_ring):
+        # sequence-parallel decode: each rank its slice, partial softmax
+        # statistics merged over `model`
+        out = shard.dist.decode_attention(
+            q, ck.to(dt), cv.to(dt), k_positions[:, r0:r0 + n],
+            k_valid[:, r0:r0 + n], window=window, kv_chunk=cfg.kv_chunk,
+            q_offset=positions)
     else:
-        out = chunked_attention(q, ck.to(dt), cv.to(dt),
-                                q_offset=positions, k_positions=k_positions,
-                                causal=True, window=window,
-                                kv_chunk=cfg.kv_chunk, k_valid=k_valid)
+        if shard is not None:   # the reference's baseline: gathered whole
+            ck, cv = shard.gather(ck, cv)
+        if cfg.decode_kernel == "flash" and s == 1 and per_slot:
+            # serving hot path: the flash-decode kernel. The -1-invalid
+            # position encoding folds k_valid into k_positions; ring caches
+            # (row != position) disable the occupancy bound.
+            from repro_torch.kernels.flash_decode import decode_attention
+            out = decode_attention(
+                q, ck.to(dt), cv.to(dt), cache_index,
+                torch.where(k_valid, k_positions, -1), window=window,
+                bounded=not is_ring)
+        else:
+            out = chunked_attention(q, ck.to(dt), cv.to(dt),
+                                    q_offset=positions,
+                                    k_positions=k_positions, causal=True,
+                                    window=window, kv_chunk=cfg.kv_chunk,
+                                    k_valid=k_valid)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
-    return y, {"k": ck, "v": cv}
+    return y, cache
+
+
+def _store(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, slots: torch.Tensor, per_slot: bool, r0: int,
+           whole: bool) -> None:
+    """Write k/v (B, T, K, D) into cache rows ``slots`` ((B, T) per slot,
+    else (T,) for every slot, global rows). ``whole``: the caches hold every
+    row; else they hold rows [r0, r0 + ck.shape[1]) of a sequence-sharded
+    cache and only the slots there are written."""
+    if whole:
+        if per_slot:
+            rows = torch.arange(ck.shape[0], device=ck.device)[:, None]
+            ck[rows, slots] = k.to(ck.dtype)
+            cv[rows, slots] = v.to(cv.dtype)
+        else:
+            ck[:, slots] = k.to(ck.dtype)
+            cv[:, slots] = v.to(cv.dtype)
+        return
+    from repro_torch.sharding.context import write_rows
+    if not per_slot:
+        slots = slots[None, :].expand(ck.shape[0], -1)
+    write_rows(ck, slots, k, r0)
+    write_rows(cv, slots, v, r0)
 
 
 def _paged_decode(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,

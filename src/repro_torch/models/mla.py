@@ -12,9 +12,19 @@ Both paths call :func:`repro_torch.models.attention.chunked_attention`, as
 the reference does on one device: the materialized path has a key width
 (nope + rope) other than its value width, the absorbed one attends over
 the latent (R + rope keys, R values), and no Pallas kernel backs either in
-the reference. They stay plain PyTorch on the card. The sharded reference
-routes the absorbed decode through flash-decode; that comes with the last
-sharded slice (``ROADMAP.md`` Queue 1, item 8).
+the reference. They stay plain PyTorch on the card.
+
+Sharded decode (inside a sharded block's region, ``shard`` the latent
+cache's :class:`repro_torch.sharding.context.CacheShard`): the latent
+cache's sequence is cut over ``model``; a rank writes the new token's row
+only where it holds that row. Under ``flash_decode`` one new token takes
+the sequence-parallel island (``repro/models/mla.py:123-130``), whose local
+attention is ``chunked_attention`` with statistics on every device: MLA's
+128 query heads on its one latent head (keys of R + rope = 576) are beyond
+the flash-decode kernel (G <= 16, head dims <= 256), so this module asks
+the island for it (``kernel=False``), as the single-device decode takes
+it. Otherwise the cache is gathered whole over ``model`` for the
+attention.
 
 Caches are written in place: the new token's latent and RoPE key are
 stored into the cache tensors, and the returned dict holds the same
@@ -90,15 +100,13 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
               positions: torch.Tensor | int = 0,
               cache: dict | None = None,
               cache_index: torch.Tensor | None = None,
-              dist: Any = None) -> tuple[torch.Tensor, dict | None]:
+              dist: Any = None, shard: Any = None
+              ) -> tuple[torch.Tensor, dict | None]:
     """MLA attention block. ``cache``: {"c_kv": (B, S, R), "k_rope": (B, S,
     rope)}, written in place and returned; ``cache_index``: int32, scalar
     or (B,) per slot. ``dist``: the whole-sequence path does not read it
-    (the sharded block runs on the rank's local batch shard)."""
-    if dist is not None and cache is not None:
-        raise NotImplementedError("sharded MLA decode (dist with a cache) "
-                                  "comes with the last sharded slice: "
-                                  "ROADMAP.md Queue 1, item 8")
+    (the sharded block runs on the rank's local batch shard). ``shard``:
+    the cache as a sharded region holds it (see the module's note)."""
     m = cfg.mla
     b, s, _ = x.shape
     dt = x.dtype
@@ -128,25 +136,45 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     cdt = ck.dtype
     # a scalar index is every slot's; (B,) per slot under continuous batching
     cache_index = cache_index.expand(b)
-    rows = torch.arange(b, device=dev)[:, None]
     slots = (cache_index[:, None] +
              torch.arange(s, dtype=torch.int32, device=dev)).long()
-    ck[rows, slots] = c_kv.to(cdt)
-    cr[rows, slots] = k_rope[:, :, 0, :].to(cdt)
+    r0, s_cache = shard.rows if shard is not None else (0, ck.shape[1])
+    n = ck.shape[1]
+    if n == s_cache:
+        rows = torch.arange(b, device=dev)[:, None]
+        ck[rows, slots] = c_kv.to(cdt)
+        cr[rows, slots] = k_rope[:, :, 0, :].to(cdt)
+    else:             # this rank's rows [r0, r0 + n) of the sequence
+        from repro_torch.sharding.context import write_rows
+        write_rows(ck, slots, c_kv, r0)
+        write_rows(cr, slots, k_rope[:, :, 0, :], r0)
     end = (cache_index + s)[:, None]
-    s_cache = ck.shape[1]
     # q_eff[h] = q_nope[h] @ w_uk[h]^T: the query against c_kv directly
     q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"].to(dt))
     q_cat = torch.cat([q_eff, q_rope], dim=-1)                # (B,S,H,R+rope)
-    k_cat = torch.cat([ck, cr], dim=-1)[:, :, None, :]        # (B,Sc,1,R+rope)
-    v_lat = ck[:, :, None, :]                                 # (B,Sc,1,R)
-    k_valid = torch.arange(s_cache, dtype=torch.int32,
-                           device=dev)[None, :] < end
-    ctx = chunked_attention(q_cat.to(dt), k_cat.to(dt), v_lat.to(dt),
-                            q_offset=positions, causal=True,
-                            kv_chunk=cfg.kv_chunk,
-                            k_valid=k_valid.expand(b, s_cache),
-                            scale=scale)                      # (B,S,H,R)
+    k_positions = torch.arange(s_cache, dtype=torch.int32,
+                               device=dev).expand(b, s_cache)
+    k_valid = k_positions < end
+    if (shard is not None and shard.seq is not None
+            and shard.has("flash_decode") and s == 1):
+        # sequence-parallel decode over this rank's latent rows; the local
+        # attention is chunked_attention on every device (G = 128 query
+        # heads on the latent head: past the flash-decode kernel)
+        k_cat = torch.cat([ck, cr], dim=-1)[:, :, None, :]
+        ctx = shard.dist.decode_attention(
+            q_cat.to(dt), k_cat.to(dt), ck[:, :, None, :].to(dt),
+            k_positions[:, r0:r0 + n], k_valid[:, r0:r0 + n],
+            kv_chunk=cfg.kv_chunk, q_offset=positions, scale=scale,
+            kernel=False)
+    else:
+        if shard is not None:    # the reference's baseline: gathered whole
+            ck, cr = shard.gather(ck, cr)
+        k_cat = torch.cat([ck, cr], dim=-1)[:, :, None, :]    # (B,Sc,1,R+rope)
+        v_lat = ck[:, :, None, :]                             # (B,Sc,1,R)
+        ctx = chunked_attention(q_cat.to(dt), k_cat.to(dt), v_lat.to(dt),
+                                q_offset=positions, causal=True,
+                                kv_chunk=cfg.kv_chunk, k_valid=k_valid,
+                                scale=scale)                  # (B,S,H,R)
     # absorb the value up-projection, then the output projection
     ctx = torch.einsum("bshr,rhk->bshk", ctx, params["w_uv"].to(dt))
     y = torch.einsum("bshk,hkd->bsd", ctx, params["w_o"].to(dt))

@@ -97,31 +97,14 @@ def moe_capacity(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     expert's capacity are dropped (contribute zero), the standard GShard
     bound; ``capacity_factor`` sets the drop rate."""
     e = cfg.moe
-    t, d = x.shape
+    t = x.shape[0]
     n_local = e.n_experts if n_local is None else n_local
     if capacity is None:
         capacity = max(1, -(-int(e.top_k * t * e.capacity_factor)
                             // e.n_experts))
     gates, idx, aux = router_topk(params, cfg, x)
-
-    # position-in-expert of every (choice, token), in the reference's order
-    # (choice 0 of every token, then choice 1, ...): the earlier entries of
-    # the same expert, counted in one cumulative sum over the (k T, E)
-    # one-hot (made by comparison: F.one_hot checks its range on the host,
-    # a sync on the card) where the reference loops over the k choices
-    k = e.top_k
-    choice = idx.t().reshape(-1)                                # (k T,)
-    oh = (choice[:, None] == torch.arange(e.n_experts, device=x.device)
-          ).long()
-    pos = ((torch.cumsum(oh, dim=0) - oh) * oh).sum(-1)
-    local_e = choice - e0
-    ok = (local_e >= 0) & (local_e < n_local) & (pos < capacity)
-    trash = n_local * capacity
-    slot = torch.where(ok, local_e * capacity + pos,
-                       torch.full_like(pos, trash))
-    xs = x.repeat(k, 1) * ok[:, None].to(x.dtype)
-    buf = x.new_zeros((trash + 1, d)).index_add(0, slot, xs)
-    h = buf[:trash].reshape(n_local, capacity, d)
+    slot, ok = dispatch_slots(cfg, idx, e0, n_local, capacity)
+    h = dispatch(x, slot, ok, n_local, capacity)
     w_gate, w_up, w_down = params["w_gate"], params["w_up"], params["w_down"]
     if w_gate.shape[0] != n_local:  # the single-device path slices nothing
         w_gate = w_gate[e0:e0 + n_local]
@@ -129,10 +112,54 @@ def moe_capacity(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         w_down = w_down[e0:e0 + n_local]
     out_buf = _expert_ffn(w_gate.to(x.dtype), w_up.to(x.dtype),
                           w_down.to(x.dtype), h)
-    picked = out_buf.reshape(trash, d)[torch.clamp_max(slot, trash - 1)]
-    w = gates.t().reshape(-1).to(x.dtype) * ok.to(x.dtype)
-    y = (picked * w[:, None]).reshape(k, t, d).sum(0)
-    return y, aux
+    return combine(out_buf, slot, ok, gates), aux
+
+
+def dispatch_slots(cfg: ModelConfig, idx: torch.Tensor, e0: int,
+                   n_local: int, capacity: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slot, ok) of every (choice, token) of ``idx`` (T, k), choice-major:
+    its row in the local experts' (n_local * capacity) buffer, and whether
+    it is kept (its expert local, within capacity); a dropped one's slot is
+    the trash row n_local * capacity.
+
+    The position in an expert is counted in the reference's order (choice 0
+    of every token, then choice 1, ...): the earlier entries of the same
+    expert, in one cumulative sum over the (k T, E) one-hot (made by
+    comparison: F.one_hot checks its range on the host, a sync on the card)
+    where the reference loops over the k choices."""
+    choice = idx.t().reshape(-1)                                # (k T,)
+    oh = (choice[:, None] == torch.arange(cfg.moe.n_experts,
+                                          device=idx.device)).long()
+    pos = ((torch.cumsum(oh, dim=0) - oh) * oh).sum(-1)
+    local_e = choice - e0
+    ok = (local_e >= 0) & (local_e < n_local) & (pos < capacity)
+    slot = torch.where(ok, local_e * capacity + pos,
+                       torch.full_like(pos, n_local * capacity))
+    return slot, ok
+
+
+def dispatch(x: torch.Tensor, slot: torch.Tensor, ok: torch.Tensor,
+             n_local: int, capacity: int) -> torch.Tensor:
+    """x: (T, d) -> (n_local, capacity, d): every kept (choice, token)'s
+    row added into its slot (one scatter; the trash row takes the dropped
+    ones' zeros and is cut off)."""
+    k = slot.shape[0] // x.shape[0]
+    trash = n_local * capacity
+    xs = x.repeat(k, 1) * ok[:, None].to(x.dtype)
+    buf = x.new_zeros((trash + 1, x.shape[1])).index_add(0, slot, xs)
+    return buf[:trash].reshape(n_local, capacity, x.shape[1])
+
+
+def combine(out: torch.Tensor, slot: torch.Tensor, ok: torch.Tensor,
+            gates: torch.Tensor) -> torch.Tensor:
+    """out: (n_local, capacity, d) -> (T, d): each token's kept choices'
+    rows weighted by their gates and summed."""
+    trash = out.shape[0] * out.shape[1]
+    k = gates.shape[1]
+    picked = out.reshape(trash, -1)[torch.clamp_max(slot, trash - 1)]
+    w = gates.t().reshape(-1).to(out.dtype) * ok.to(out.dtype)
+    return (picked * w[:, None]).reshape(k, -1, out.shape[-1]).sum(0)
 
 
 def moe_ref(params: dict, cfg: ModelConfig, x: torch.Tensor

@@ -21,9 +21,13 @@ not checkpointed. ``dist`` (a :class:`repro_torch.sharding.DistContext`)
 runs the sharded step: the embedding as the vocab-parallel island, each
 block as a region on the rank's batch shard with the MoE as the
 expert-parallel island, the activations constrained after the embedding
-and after each block, and the logits left vocab-sharded. Sharded decode
-(caches with ``dist``) comes with the last sharded slice (ROADMAP.md
-Queue 1, item 8). As in the reference, MLA has no paged cache.
+and after each block, and the logits left vocab-sharded. With caches
+(DTensors placed by :func:`repro_torch.launch.specs.cache_sharding_tree`)
+each block's region writes its cache's local shard in place and decodes
+as :mod:`repro_torch.models.attention` says; the MoE decodes dropless
+through ``moe_island(decode=True)``; paged pools are replicated over the
+mesh, and a paged block's region runs on the whole batch. As in the
+reference, MLA has no paged cache.
 """
 from __future__ import annotations
 
@@ -45,9 +49,6 @@ from .moe import moe_block, moe_spec
 from .params import ParamSpec, stack_specs
 from .rglru import init_rglru_cache, rglru_block, rglru_spec
 from .ssd import init_ssd_cache, ssd_block, ssd_spec
-
-_SHARDED_DECODE = "sharded decode (dist with caches) comes with the last " \
-                  "sharded slice: ROADMAP.md Queue 1, item 8"
 
 _aten = torch.ops.aten
 # what each remat policy saves inside a period (the reference's
@@ -98,9 +99,9 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
     float 0.0 for a block without a MoE. With ``dist``, ``x`` and the
     params are DTensors (:func:`_block_dist`)."""
     if dist is not None:
-        if cache is not None:
-            raise NotImplementedError(_SHARDED_DECODE)
-        return _block_dist(params, cfg, kind, x, dist)
+        return _block_dist(params, cfg, kind, x, dist, positions=positions,
+                           cache=cache, cache_index=cache_index,
+                           decode=decode, pages=pages)
     aux = 0.0
     x = _mixer(params, cfg, kind, x, positions=positions, cache=cache,
                cache_index=cache_index, pages=pages)
@@ -117,19 +118,22 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
 
 def _mixer(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
            positions=0, cache=None, cache_index=None, pages=None,
-           reduce: Callable | None = None) -> torch.Tensor:
+           reduce: Callable | None = None, shard=None) -> torch.Tensor:
     """x + the block's mixing layer (attention, MLA, SSD or RG-LRU) of its
     first norm; caches are written in place. ``reduce`` sums a layer
-    output that is partial over the tensor-parallel ranks."""
+    output that is partial over the tensor-parallel ranks; ``shard`` is
+    the attention cache's cut in a sharded region."""
     h = rmsnorm(params["norm1"], x, cfg.rms_eps)
     if kind in ("attn", "local"):
         if cfg.mla is not None:
             y, _ = mla_block(params["mix"], cfg, h, positions=positions,
-                             cache=cache, cache_index=cache_index)
+                             cache=cache, cache_index=cache_index,
+                             shard=shard)
         else:
             y, _ = attention_block(params["mix"], cfg, h, kind=kind,
                                    positions=positions, cache=cache,
-                                   cache_index=cache_index, pages=pages)
+                                   cache_index=cache_index, pages=pages,
+                                   shard=shard)
     elif kind == "ssd":
         y, _ = ssd_block(params["mix"], cfg, h, cache=cache)
     elif kind == "rglru":
@@ -164,21 +168,34 @@ def _rank_kv(mix: dict, cfg: ModelConfig, dist) -> dict:
     return {**mix, "wk": wk[:, k0:k0 + 1], "wv": mix["wv"][:, k0:k0 + 1]}
 
 
-def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist
-                ) -> tuple[Any, None, Any]:
+def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist, *,
+                positions=0, cache: dict | None = None, cache_index=None,
+                decode: bool = False, pages=None) -> tuple[Any, Any, Any]:
     """The sharded block: the mixing layer and a dense FFN as one region
     on the rank's batch shard (the kernels launch there on local tensors),
     a MoE as :meth:`DistContext.moe_island`, the result constrained to the
     batch sharding. Attention heads and MLP columns that the rules shard
     over ``model`` stay sharded in the region (each rank computes its
     heads or columns; one all-reduce sums the layer's output); every other
-    weight is gathered whole."""
+    weight is gathered whole.
+
+    With a ``cache`` (a dict of DTensors) the region writes the rank's
+    local shard in place (:meth:`DistContext.cache_shard`). Attention
+    keeps its heads split only where the cache is cut on the KV heads
+    alike; a sequence-sharded or replicated cache takes every head on
+    every ``model`` rank. A paged cache's pools are replicated: that
+    region runs on the whole batch, so every rank writes every slot's row
+    into its copy, and the result is cut back to the batch sharding.
+    ``positions`` and ``cache_index`` are global (scalar, or (B,) per
+    slot: the rank's rows are taken here)."""
     from repro_torch.sharding.rules import P
     aux = 0.0
     moe = _has_mlp(cfg, kind) and cfg.moe is not None
     dense = {k: v for k, v in params.items() if not (moe and k == "ffn")}
-    mix_tp = kind in ("attn", "local") and _heads_split(cfg, params["mix"],
-                                                        dist)
+    shard = dist.cache_shard(cache) if cache is not None else None
+    paged = cache is not None and "pool_k" in cache
+    mix_tp = kind in ("attn", "local") and _heads_split(
+        cfg, params["mix"], dist) and (shard is None or shard.heads)
     mlp_tp = "ffn" in dense and \
         dist.model_spec(dense["ffn"]["w_down"])[0] == dist.tp_axis
     split = {"mix": mix_tp, "ffn": mlp_tp}
@@ -188,10 +205,19 @@ def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist
     def reduce(y):
         return dist.psum(y, dist.tp_axis)
 
+    pos_l, idx_l = positions, cache_index
+    if cache is not None and not paged:
+        rows = dist.batch_rows(x.shape[0])      # per-slot indices: ours
+        pos_l, idx_l = (_rows_of(t, rows) for t in (positions, cache_index))
+    local_cache = shard.local if shard is not None else None
+
     def region(xl, p):
         if mix_tp:
             p = {**p, "mix": _rank_kv(p["mix"], cfg, dist)}
-        xl = _mixer(p, cfg, kind, xl, reduce=reduce if mix_tp else None)
+        xl = _mixer(p, cfg, kind, xl, positions=pos_l, cache=local_cache,
+                    cache_index=idx_l, pages=pages,
+                    reduce=reduce if mix_tp else None,
+                    shard=shard if not paged else None)
         if not _has_mlp(cfg, kind):
             return xl
         h = rmsnorm(p["norm2"], xl, cfg.rms_eps)
@@ -200,13 +226,27 @@ def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist
         f = mlp(p["ffn"], cfg, h)
         return xl + (reduce(f) if mlp_tp else f)
 
-    if moe:
-        x, h = dist.dense(region, [x], dense, n_out=2, param_specs=specs)
-        f, aux = dist.moe_island(params["ffn"], cfg, h)
-        x = x + f
+    n_out = 2 if moe else 1
+    if paged:
+        whole = P(*([None] * x.dim()))
+        out = dist.local(region, [x], [whole], [whole] * n_out, dense, specs)
     else:
-        x = dist.dense(region, [x], dense, param_specs=specs)
-    return dist.constrain_activation(x), None, aux
+        out = dist.dense(region, [x], dense, n_out=n_out, param_specs=specs)
+    if moe:
+        x, h = out
+        f, aux = dist.moe_island(params["ffn"], cfg,
+                                 dist.constrain_activation(h), decode=decode)
+        x = dist.constrain_activation(x) + f
+    else:
+        x = out
+    return dist.constrain_activation(x), cache, aux
+
+
+def _rows_of(t, rows: slice):
+    """A per-slot (B,) tensor's rows ``rows``; a scalar as it is."""
+    if isinstance(t, torch.Tensor) and t.dim() == 1:
+        return t[rows]
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -382,13 +422,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     came from :func:`init_paged_caches` (shared by every paged layer).
     ``remat``: "none" | "full" | "dots" | "dots_no_batch"
     (:func:`period_runner`). ``dist``: params and batch are DTensors placed
-    by ``dist``; the logits come back as a DTensor, vocab-sharded.
+    by ``dist``, and so are ``caches`` (written in place, as without
+    ``dist``); ``cache_index`` is global; the logits come back as a
+    DTensor, vocab-sharded.
     Returns (logits (B, S, padded_vocab) over the text positions only for
     a VLM, caches or None, aux_loss).
     """
     decode = caches is not None
-    if dist is not None and decode:
-        raise NotImplementedError(_SHARDED_DECODE)
     run_period = period_runner(remat)
     if dist is None:
         x, n_prefix = _embed_inputs(params, cfg, batch)
@@ -405,7 +445,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         for i in range(cfg.n_periods):
             x, a = run_period(
                 index(params["periods"], i), cfg, x, positions=positions,
-                caches_p=_index(caches_p, i) if caches_p is not None else None,
+                caches_p=index(caches_p, i) if caches_p is not None else None,
                 cache_index=cache_index, dist=dist, decode=decode,
                 pages=pages)
             aux_total = aux_total + a
@@ -428,7 +468,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         else torch.tensor(aux_total, dtype=torch.float32, device=dev)
     if dist is not None:
         return _head_dist(params, cfg, x, n_prefix, dist, return_hidden), \
-            None, aux_total
+            (caches if decode else None), aux_total
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if n_prefix:
         x = x[:, n_prefix:]  # loss/logits over text positions only (VLM)

@@ -11,10 +11,15 @@ new :class:`TrainState`, leaving the one it was given as it was.
 state from :func:`shard_train_state`, its batch from
 ``DistContext.shard_batch``): the vocab-parallel loss, the MoE
 expert-parallel island, activation constraints, and AdamW on each rank's
-shards. ``remat`` checkpoints each period of the stack
-(:func:`repro_torch.models.transformer.period_runner`). ``dist`` in the
-prefill and serve steps (their cache shardings) comes with the last sharded
-slice (ROADMAP.md Queue 1, item 8).
+shards; under ``chunked_ce`` (where ``model`` divides the vocabulary)
+the loss is the fused, chunked ``DistContext.fused_ce`` on the hidden
+states. ``remat`` checkpoints each period of the stack
+(:func:`repro_torch.models.transformer.period_runner`). The prefill and
+serve steps take ``dist`` too: params placed by the rules, caches by
+:func:`repro_torch.launch.specs.cache_sharding_tree` (paged pools
+replicated), tokens sharded over the batch axes (a plain tensor is placed
+by ``DistContext.shard_batch``); they return the logits whole on every
+rank, as the reference's unsharded outputs are.
 """
 from __future__ import annotations
 
@@ -33,10 +38,6 @@ from repro_torch.optim import (OptimizerConfig, adamw_init, adamw_update,
 from repro_torch.tree import leaves, register_node, tree_map, unflatten_as
 
 from .loss import lm_loss
-
-_SHARDED_SERVE = "sharded prefill and serve steps (dist; their cache " \
-                 "shardings) come with the last sharded slice: ROADMAP.md " \
-                 "Queue 1, item 8"
 
 
 @dataclass
@@ -83,12 +84,20 @@ def shard_train_state(state: TrainState, cfg: ModelConfig,
 def _loss_fn(params, cfg: ModelConfig, batch: dict, aux_weight: float,
              dist: Any = None, remat: str = "none"):
     weights = batch.get("weights")
-    logits, _, aux = forward(params, cfg, batch, dist=dist, remat=remat)
-    if dist is not None:
-        loss, metrics = dist.vocab_parallel_loss(logits, batch["labels"],
-                                                 weights)
+    fused = (dist is not None and dist.has("chunked_ce")
+             and cfg.padded_vocab % dist.tp_size == 0)
+    if fused:
+        hidden, _, aux = forward(params, cfg, batch, dist=dist, remat=remat,
+                                 return_hidden=True)
+        loss, metrics = dist.fused_ce(hidden, params["embed"], cfg,
+                                      batch["labels"], weights)
     else:
-        loss, metrics = lm_loss(logits, batch["labels"], weights)
+        logits, _, aux = forward(params, cfg, batch, dist=dist, remat=remat)
+        if dist is not None:
+            loss, metrics = dist.vocab_parallel_loss(logits, batch["labels"],
+                                                     weights)
+        else:
+            loss, metrics = lm_loss(logits, batch["labels"], weights)
     loss = loss + aux_weight * aux.to(loss.device)
     metrics["aux_loss"] = aux
     return loss, metrics
@@ -174,24 +183,48 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
     return train_step
 
 
+def _placed(batch: dict, dist: Any) -> dict:
+    """The batch's plain tensors sharded by ``dist`` (DTensors kept)."""
+    if dist is None:
+        return batch
+    from repro_torch.sharding.context import is_dtensor
+    plain = {k: v for k, v in batch.items()
+             if v is not None and not is_dtensor(v)}
+    return {**batch, **dist.shard_batch(plain)} if plain else batch
+
+
+def _whole(logits, last: bool = False):
+    """Logits (B, S, V) as a tensor on every rank (a DTensor gathered;
+    ``last``: only the last position's (B, V), cut before the gather)."""
+    from repro_torch.sharding.context import is_dtensor
+    if not is_dtensor(logits):
+        return logits[:, -1] if last else logits
+    if last:
+        from torch.distributed.tensor import DTensor, Shard
+        pl = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+              for p in logits.placements]
+        logits = DTensor.from_local(logits.to_local()[:, -1],
+                                    logits.device_mesh, pl, run_check=False)
+    return logits.full_tensor()
+
+
 def make_prefill_step(cfg: ModelConfig, *, dist: Any = None) -> Callable:
     """prefill(params, batch, caches) -> (last-token logits, caches).
     Encoder-only models take no caches and return per-frame logits."""
-    if dist is not None:
-        raise NotImplementedError(_SHARDED_SERVE)
     if cfg.encoder_only:
+        @torch.no_grad()
         def prefill_enc(params, batch):
-            logits, _, _ = forward(params, cfg, batch)
-            return logits
+            logits, _, _ = forward(params, cfg, _placed(batch, dist),
+                                   dist=dist)
+            return _whole(logits)
         return prefill_enc
 
     @torch.no_grad()
     def prefill(params, batch, caches):
-        dev = batch["tokens"].device
-        logits, new_caches, _ = forward(
-            params, cfg, batch, caches=caches,
-            cache_index=torch.zeros((), dtype=torch.int32, device=dev))
-        return logits[:, -1], new_caches
+        logits, new_caches, _ = forward(params, cfg, _placed(batch, dist),
+                                        caches=caches, cache_index=0,
+                                        dist=dist)
+        return _whole(logits, last=True), new_caches
 
     return prefill
 
@@ -206,14 +239,13 @@ def make_serve_step(cfg: ModelConfig, *, dist: Any = None,
     ``decode_kernel`` overrides ``cfg.decode_kernel`` ("chunked" reference |
     "flash" kernels). ``paged=True`` gives the paged-cache step, which takes
     the (B, pages_per_slot) page table as a fifth argument (caches from
-    ``init_paged_caches``)."""
-    if dist is not None:
-        raise NotImplementedError(_SHARDED_SERVE)
+    ``init_paged_caches``; under ``dist`` its pools replicated, the page
+    table and per-slot indices global)."""
     if decode_kernel is not None:
         cfg = cfg.with_(decode_kernel=decode_kernel)
 
     def _finish(logits):
-        logits = logits[:, -1]
+        logits = _whole(logits, last=True)
         if cfg.padded_vocab != cfg.vocab_size:  # mask vocab padding
             pad_mask = torch.arange(cfg.padded_vocab,
                                     device=logits.device) >= cfg.vocab_size
@@ -227,17 +259,18 @@ def make_serve_step(cfg: ModelConfig, *, dist: Any = None,
         @torch.no_grad()
         def serve_step(params, tokens, caches, cache_index, pages):
             logits, new_caches, _ = forward(
-                params, cfg, {"tokens": tokens}, caches=caches,
-                cache_index=cache_index, pages=pages)
+                params, cfg, _placed({"tokens": tokens}, dist), caches=caches,
+                cache_index=cache_index, pages=pages, dist=dist)
             logits, next_id = _finish(logits)
             return logits, next_id, new_caches
         return serve_step
 
     @torch.no_grad()
     def serve_step(params, tokens, caches, cache_index):
-        logits, new_caches, _ = forward(params, cfg, {"tokens": tokens},
+        logits, new_caches, _ = forward(params, cfg,
+                                        _placed({"tokens": tokens}, dist),
                                         caches=caches,
-                                        cache_index=cache_index)
+                                        cache_index=cache_index, dist=dist)
         logits, next_id = _finish(logits)
         return logits, next_id, new_caches
 

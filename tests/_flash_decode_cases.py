@@ -361,3 +361,55 @@ def valid_keys(case):
     if case["window"] is not None:
         mask &= kpos > qpos - case["window"]
     return int(mask.sum())
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded decode (a cache split over the `model` ranks)
+# ---------------------------------------------------------------------------
+
+ISLAND_TP = (2, 4, 8)
+
+
+def island_case(seed=0, s=4096, valid=1170):
+    """gemma3-1b's global decode (K=1, G=4, D=256), 8 slots over a dense
+    cache of ``s`` rows of which the first ``valid`` are written: slot
+    positions ragged up to ``valid - 1``, so every split into
+    ``ISLAND_TP`` shards has shards past every slot's position (no valid
+    key)."""
+    rng = np.random.default_rng(seed)
+    b = 8
+    qpos = np.concatenate([[valid - 1], rng.integers(
+        valid - 100, valid, size=b - 1)]).astype(np.int32)
+    q, k, v = _rand_qkv(rng, b, s, 4, 1, 256)
+    return _dense(q, k, v, qpos, dense_kpos(qpos, s), bounded=False)
+
+
+def shard_rows(case, tp):
+    """The dense case's cache cut into ``tp`` equal sequence shards, as a
+    rank holds them: [(k, v, kpos), ...], each row keeping its global
+    position (-1 where invalid)."""
+    s = case["k"].shape[1]
+    n = s // tp
+    return [(case["k"][:, i * n:(i + 1) * n], case["v"][:, i * n:(i + 1) * n],
+             case["kpos"][:, i * n:(i + 1) * n]) for i in range(tp)]
+
+
+def lse_oracle(case):
+    """Each (slot, head)'s log-sum-exp of its attended scores, float64
+    (-inf with no attended key)."""
+    k, kpos = case["k"], case["kpos"]
+    q, qpos, window = case["q"], case["qpos"], case["window"]
+    b, _, h, dk = q.shape
+    g = h // k.shape[2]
+    out = np.full((b, 1, h), -np.inf)
+    for bi in range(b):
+        mask = (kpos[bi] >= 0) & (kpos[bi] <= qpos[bi])
+        if window is not None:
+            mask &= kpos[bi] > qpos[bi] - window
+        if not mask.any():
+            continue
+        for hi in range(h):
+            sc = (k[bi, mask, hi // g].astype(np.float64)
+                  @ q[bi, 0, hi].astype(np.float64)) * dk ** -0.5
+            out[bi, 0, hi] = sc.max() + np.log(np.exp(sc - sc.max()).sum())
+    return out

@@ -182,16 +182,19 @@ def test_train_steps_match_reference(arch, microbatch):
 
 def test_train_step_rejects_what_is_not_ported():
     """remat and dist are ported for the train step (tests/test_torch_remat.py,
-    tests/test_torch_sharded_step.py); dist in the prefill and serve steps
-    is not yet."""
+    tests/test_torch_sharded_step.py), and dist for the prefill and serve
+    steps (tests/test_torch_sharded_serve.py): the builders take them
+    without a world; an unknown remat policy is refused."""
+    from repro_torch.sharding import DistContext
     cfg, o = configs.smoke_config("mamba2_130m"), OptimizerConfig()
     make_train_step(cfg, o, remat="full")
     with pytest.raises(KeyError):
         make_train_step(cfg, o, remat="unknown")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prefill_step(cfg, dist=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serve_step(cfg, dist=object())
+    d = DistContext({"data": 2, "model": 2}, flags=frozenset({"chunked_ce"}))
+    for fn in (make_train_step(cfg, o, dist=d), make_prefill_step(cfg, dist=d),
+               make_serve_step(cfg, dist=d),
+               make_serve_step(cfg, dist=d, paged=True)):
+        assert callable(fn)
 
 
 def test_init_and_shapes_agree_with_reference():
