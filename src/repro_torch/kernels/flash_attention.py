@@ -51,6 +51,8 @@ import threading
 
 import torch
 
+from repro_torch.obs.trace import span
+
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernel's head dims
 MAX_G = 64                               # query heads per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -258,26 +260,27 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp (B, H, Sq) in float32. bf16 runs on the tensor cores;
     ``fma`` asks for the fp32 FMA design instead (the float32 path), to
     time the two side by side."""
-    q, k, v = _prepare(q, k, v, q_offset)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if b * sq == 0:
+    with span("repro.kernel.flash_attention"):
+        q, k, v = _prepare(q, k, v, q_offset)
+        b, sq, h, d = q.shape
+        sk, kh = k.shape[1], k.shape[2]
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        if b * sq == 0:
+            return out, lse
+        lib = _library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.flash_attention_launch(
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b, sq, sk, h, kh, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                1.0 / math.sqrt(d), int(causal),
+                0 if window is None else int(window), int(q_offset),
+                _vec(q, k, v), int(fma), stream)
+        _raise_on(err, "flash_attention_launch")
+        _count("launches")
         return out, lse
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, sq, sk, h, kh, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            1.0 / math.sqrt(d), int(causal),
-            0 if window is None else int(window), int(q_offset),
-            _vec(q, k, v), int(fma), stream)
-    _raise_on(err, "flash_attention_launch")
-    _count("launches")
-    return out, lse
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,42 +288,44 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, window: int | None, q_offset: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the backward kernel: dq, dk, dv in the inputs' dtype."""
-    q, k, v = _prepare(q, k, v, q_offset)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if out.shape != q.shape or g.shape != q.shape or \
-            lse.shape != (b, h, sq):
-        raise ValueError(f"flash_attention backward: out {tuple(out.shape)}"
-                         f", g {tuple(g.shape)} and lse {tuple(lse.shape)} "
-                         f"do not fit q {tuple(q.shape)}")
-    out = out.to(q.dtype).contiguous()
-    g = g.to(q.dtype).contiguous()
-    lse = lse.float().contiguous()
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, kh, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    if b * sq == 0:
-        return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _library()
-    # the dK/dV pass's partial sums when it splits the query range
-    win = 0 if window is None else int(window)
-    n_ws = lib.flash_attention_bwd_workspace(_DTYPES[q.dtype], b, sk, kh, d,
-                                             int(causal), win)
-    ws = torch.empty(max(n_ws, 0), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            ws.data_ptr() if n_ws > 0 else None, dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, h, kh, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            1.0 / math.sqrt(d), int(causal), win, int(q_offset),
-            _vec(q, k, v, out, g), stream)
-    _raise_on(err, "flash_attention_bwd_launch")
-    _count("bwd_launches")
-    return dq, dk, dv
+    with span("repro.kernel.flash_attention_bwd"):
+        q, k, v = _prepare(q, k, v, q_offset)
+        b, sq, h, d = q.shape
+        sk, kh = k.shape[1], k.shape[2]
+        if out.shape != q.shape or g.shape != q.shape or \
+                lse.shape != (b, h, sq):
+            raise ValueError(f"flash_attention backward: out "
+                             f"{tuple(out.shape)}, g {tuple(g.shape)} and "
+                             f"lse {tuple(lse.shape)} do not fit q "
+                             f"{tuple(q.shape)}")
+        out = out.to(q.dtype).contiguous()
+        g = g.to(q.dtype).contiguous()
+        lse = lse.float().contiguous()
+        dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, sk, kh, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        if b * sq == 0:
+            return dq, dk.zero_(), dv.zero_()
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        lib = _library()
+        # the dK/dV pass's partial sums when it splits the query range
+        win = 0 if window is None else int(window)
+        n_ws = lib.flash_attention_bwd_workspace(_DTYPES[q.dtype], b, sk, kh,
+                                                 d, int(causal), win)
+        ws = torch.empty(max(n_ws, 0), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.flash_attention_bwd_launch(
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                ws.data_ptr() if n_ws > 0 else None, dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                1.0 / math.sqrt(d), int(causal), win, int(q_offset),
+                _vec(q, k, v, out, g), stream)
+        _raise_on(err, "flash_attention_bwd_launch")
+        _count("bwd_launches")
+        return dq, dk, dv
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,

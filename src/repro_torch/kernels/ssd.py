@@ -38,6 +38,8 @@ import threading
 
 import torch
 
+from repro_torch.obs.trace import span
+
 MAX_P, MAX_N = 64, 128      # head_dim and d_state the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -344,66 +346,68 @@ def _workspace(x, n: int, backward: int) -> torch.Tensor:
 def _launch(x, dt, a, bmat, cmat, h0):
     """Run the forward kernels: (y like x, final state (B, H, P, N)
     float32)."""
-    x, dt, a, bmat, cmat, h0 = _prepare(x, dt, a, bmat, cmat, h0)
-    b, s, h, p = x.shape
-    n = bmat.shape[-1]
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    h_fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    if b * h == 0:
+    with span("repro.kernel.ssd_scan"):
+        x, dt, a, bmat, cmat, h0 = _prepare(x, dt, a, bmat, cmat, h0)
+        b, s, h, p = x.shape
+        n = bmat.shape[-1]
+        y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+        h_fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+        if b * h == 0:
+            return y, h_fin
+        ws = _workspace(x, n, 0)
+        lib = _library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.ssd_scan_launch(
+                _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                bmat.data_ptr(), cmat.data_ptr(),
+                0 if h0 is None else h0.data_ptr(), y.data_ptr(),
+                h_fin.data_ptr(), ws.data_ptr(), b, s, h, p, n,
+                *x.stride()[:3], *bmat.stride()[:2], *cmat.stride()[:2],
+                *dt.stride(), _vec(x, bmat, cmat), stream)
+        _raise_on(err, "ssd_scan_launch")
+        _count("launches")
         return y, h_fin
-    ws = _workspace(x, n, 0)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_scan_launch(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-            bmat.data_ptr(), cmat.data_ptr(),
-            0 if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_fin.data_ptr(), ws.data_ptr(), b, s, h, p, n,
-            *x.stride()[:3], *bmat.stride()[:2], *cmat.stride()[:2],
-            *dt.stride(), _vec(x, bmat, cmat), stream)
-    _raise_on(err, "ssd_scan_launch")
-    _count("launches")
-    return y, h_fin
 
 
 def _launch_bwd(x, dt, a, bmat, cmat, h0, gy, g_hfin):
     """Run the backward kernels for the cotangents ``gy`` and ``g_hfin``
     (either may be None: zero): (dx like x, ddt and da float32, dB and dC
     like B, dh0 float32 or None when there is no h0)."""
-    x, dt, a, bmat, cmat, h0 = _prepare(x, dt, a, bmat, cmat, h0)
-    b, s, h, p = x.shape
-    n = bmat.shape[-1]
-    dev = x.device
-    gy = torch.zeros_like(x) if gy is None else _rows(gy.to(x.dtype), "gy")
-    if g_hfin is not None:
-        g_hfin = g_hfin.to(torch.float32).contiguous()
-    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
-    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
-    da = torch.zeros((h,), dtype=torch.float32, device=dev)
-    db = torch.empty((b, s, n), dtype=x.dtype, device=dev)
-    dc = torch.empty_like(db)
-    dh0 = (None if h0 is None else
-           torch.empty((b, h, p, n), dtype=torch.float32, device=dev))
-    if b * h == 0:
+    with span("repro.kernel.ssd_scan_bwd"):
+        x, dt, a, bmat, cmat, h0 = _prepare(x, dt, a, bmat, cmat, h0)
+        b, s, h, p = x.shape
+        n = bmat.shape[-1]
+        dev = x.device
+        gy = torch.zeros_like(x) if gy is None else _rows(gy.to(x.dtype), "gy")
+        if g_hfin is not None:
+            g_hfin = g_hfin.to(torch.float32).contiguous()
+        dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+        ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+        da = torch.zeros((h,), dtype=torch.float32, device=dev)
+        db = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+        dc = torch.empty_like(db)
+        dh0 = (None if h0 is None else
+               torch.empty((b, h, p, n), dtype=torch.float32, device=dev))
+        if b * h == 0:
+            return dx, ddt, da, db, dc, dh0
+        ws = _workspace(x, n, 1)
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.ssd_scan_bwd_launch(
+                _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                bmat.data_ptr(), cmat.data_ptr(),
+                0 if h0 is None else h0.data_ptr(), gy.data_ptr(),
+                0 if g_hfin is None else g_hfin.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                0 if dh0 is None else dh0.data_ptr(), ws.data_ptr(),
+                b, s, h, p, n, *x.stride()[:3], *bmat.stride()[:2],
+                *cmat.stride()[:2], *dt.stride(), *gy.stride()[:3],
+                _vec(x, bmat, cmat, gy), stream)
+        _raise_on(err, "ssd_scan_bwd_launch")
+        _count("bwd_launches")
         return dx, ddt, da, db, dc, dh0
-    ws = _workspace(x, n, 1)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_scan_bwd_launch(
-            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-            bmat.data_ptr(), cmat.data_ptr(),
-            0 if h0 is None else h0.data_ptr(), gy.data_ptr(),
-            0 if g_hfin is None else g_hfin.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            0 if dh0 is None else dh0.data_ptr(), ws.data_ptr(),
-            b, s, h, p, n, *x.stride()[:3], *bmat.stride()[:2],
-            *cmat.stride()[:2], *dt.stride(), *gy.stride()[:3],
-            _vec(x, bmat, cmat, gy), stream)
-    _raise_on(err, "ssd_scan_bwd_launch")
-    _count("bwd_launches")
-    return dx, ddt, da, db, dc, dh0
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

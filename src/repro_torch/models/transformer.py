@@ -28,6 +28,11 @@ as :mod:`repro_torch.models.attention` says; the MoE decodes dropless
 through ``moe_island(decode=True)``; paged pools are replicated over the
 mesh, and a paged block's region runs on the whole batch. As in the
 reference, MLA has no paged cache.
+
+Each block opens two profiler ranges (:func:`repro_torch.obs.trace.span`):
+``repro.mixer`` (the first norm, the mixing layer and its residual add) and,
+where it has an FFN, ``repro.ffn`` (the second norm, the MLP or MoE and its
+add).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.obs.trace import span
 from repro_torch.tree import tree_map
 
 from .attention import attention_block, attention_spec, init_kv_cache
@@ -106,13 +112,14 @@ def block_apply(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
     x = _mixer(params, cfg, kind, x, positions=positions, cache=cache,
                cache_index=cache_index, pages=pages)
     if _has_mlp(cfg, kind):
-        h = rmsnorm(params["norm2"], x, cfg.rms_eps)
-        if cfg.moe is not None:
-            f, aux = moe_block(params["ffn"], cfg, h, impl="capacity",
-                               dropless=decode)
-        else:
-            f = mlp(params["ffn"], cfg, h)
-        x = x + f
+        with span("repro.ffn"):
+            h = rmsnorm(params["norm2"], x, cfg.rms_eps)
+            if cfg.moe is not None:
+                f, aux = moe_block(params["ffn"], cfg, h, impl="capacity",
+                                   dropless=decode)
+            else:
+                f = mlp(params["ffn"], cfg, h)
+            x = x + f
     return x, cache, aux
 
 
@@ -123,24 +130,25 @@ def _mixer(params: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
     first norm; caches are written in place. ``reduce`` sums a layer
     output that is partial over the tensor-parallel ranks; ``shard`` is
     the attention cache's cut in a sharded region."""
-    h = rmsnorm(params["norm1"], x, cfg.rms_eps)
-    if kind in ("attn", "local"):
-        if cfg.mla is not None:
-            y, _ = mla_block(params["mix"], cfg, h, positions=positions,
-                             cache=cache, cache_index=cache_index,
-                             shard=shard)
+    with span("repro.mixer"):
+        h = rmsnorm(params["norm1"], x, cfg.rms_eps)
+        if kind in ("attn", "local"):
+            if cfg.mla is not None:
+                y, _ = mla_block(params["mix"], cfg, h, positions=positions,
+                                 cache=cache, cache_index=cache_index,
+                                 shard=shard)
+            else:
+                y, _ = attention_block(params["mix"], cfg, h, kind=kind,
+                                       positions=positions, cache=cache,
+                                       cache_index=cache_index, pages=pages,
+                                       shard=shard)
+        elif kind == "ssd":
+            y, _ = ssd_block(params["mix"], cfg, h, cache=cache)
+        elif kind == "rglru":
+            y, _ = rglru_block(params["mix"], cfg, h, cache=cache)
         else:
-            y, _ = attention_block(params["mix"], cfg, h, kind=kind,
-                                   positions=positions, cache=cache,
-                                   cache_index=cache_index, pages=pages,
-                                   shard=shard)
-    elif kind == "ssd":
-        y, _ = ssd_block(params["mix"], cfg, h, cache=cache)
-    elif kind == "rglru":
-        y, _ = rglru_block(params["mix"], cfg, h, cache=cache)
-    else:
-        raise ValueError(f"unknown layer kind {kind}")
-    return x + (y if reduce is None else reduce(y))
+            raise ValueError(f"unknown layer kind {kind}")
+        return x + (y if reduce is None else reduce(y))
 
 
 def _heads_split(cfg: ModelConfig, mix: dict, dist) -> bool:
@@ -220,11 +228,12 @@ def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist, *,
                     shard=shard if not paged else None)
         if not _has_mlp(cfg, kind):
             return xl
-        h = rmsnorm(p["norm2"], xl, cfg.rms_eps)
-        if moe:
-            return xl, h
-        f = mlp(p["ffn"], cfg, h)
-        return xl + (reduce(f) if mlp_tp else f)
+        with span("repro.ffn"):     # a MoE's island: a second range below
+            h = rmsnorm(p["norm2"], xl, cfg.rms_eps)
+            if moe:
+                return xl, h
+            f = mlp(p["ffn"], cfg, h)
+            return xl + (reduce(f) if mlp_tp else f)
 
     n_out = 2 if moe else 1
     if paged:
@@ -234,9 +243,11 @@ def _block_dist(params: dict, cfg: ModelConfig, kind: str, x, dist, *,
         out = dist.dense(region, [x], dense, n_out=n_out, param_specs=specs)
     if moe:
         x, h = out
-        f, aux = dist.moe_island(params["ffn"], cfg,
-                                 dist.constrain_activation(h), decode=decode)
-        x = dist.constrain_activation(x) + f
+        with span("repro.ffn"):
+            f, aux = dist.moe_island(params["ffn"], cfg,
+                                     dist.constrain_activation(h),
+                                     decode=decode)
+            x = dist.constrain_activation(x) + f
     else:
         x = out
     return dist.constrain_activation(x), cache, aux

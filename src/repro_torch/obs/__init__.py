@@ -39,6 +39,35 @@ histograms and spans while keeping counters/gauges live. The telemetry
 plane is opt-in (``KsaCluster(telemetry=True)``) and budgeted at ≤10%
 end-to-end overhead on a no-op DAG (``benchmarks/bench_obs.py`` →
 ``BENCH_obs.json``).
+
+Step spans — :func:`span`, profiler ranges inside the model code, which
+record nothing unless ``torch.profiler`` runs around them:
+
+- ``repro.train_step``: one train step; inside it ``repro.forward`` (the
+  model and the loss), ``repro.backward`` (everything ``autograd.grad``
+  launches, remat's recomputation included; on CUDA it is opened again on
+  the autograd engine's device thread, which runs the backward's kernels)
+  and ``repro.optimizer`` (learning rate, clipping, AdamW, the step count);
+- ``repro.encode``: one encoder call (``make_prefill_step``);
+- ``repro.mixer`` and ``repro.ffn``: each block's norm, mixing layer and
+  residual add, and its second norm, MLP or MoE and add;
+- ``repro.kernel.ssd_scan``, ``repro.kernel.ssd_scan_bwd``,
+  ``repro.kernel.flash_attention``, ``repro.kernel.flash_attention_bwd``:
+  the hand kernels' launches.
+
+To see them, profile a few steps and open the trace in Perfetto or
+``chrome://tracing``::
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace("steps.json")
+
+A kernel launched inside a range is linked to it by the profiler's
+correlation id, so the device time under each range can be summed.
 """
 from .blackbox import FlightRecorder
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
@@ -48,7 +77,7 @@ from .rss import sample_rss_mb
 from .series import TimeSeriesStore
 from .slo import AlertEngine, AlertRule, SloSpec
 from .telemetry import TelemetryCollector, TelemetryPublisher
-from .trace import NullSpanStore, SpanStore
+from .trace import NullSpanStore, SpanStore, span
 
 __all__ = [
     "Counter",
@@ -61,6 +90,7 @@ __all__ = [
     "topic_class",
     "SpanStore",
     "NullSpanStore",
+    "span",
     "sample_rss_mb",
     "TimeSeriesStore",
     "TelemetryPublisher",

@@ -17,13 +17,23 @@ The store is deliberately *lossy at the edges* — a fixed number of tasks
 (LRU-evicted) and a fixed number of spans per task — so tracing a week-long
 campaign cannot exhaust broker memory. Eviction counters are exposed via
 :meth:`stats` so silently dropped history is visible.
+
+The port traces at two levels:
+
+* task spans, in the :class:`SpanStore` above: the control plane's hops of
+  each task, kept by the broker;
+* step spans, as profiler ranges (:func:`span`): the train step's forward,
+  backward and optimizer, the encoder call, each block's mixer and FFN, and
+  the hand kernels' launches, named ``repro.<what>``. Nothing keeps them;
+  they appear on ``torch.profiler``'s timeline for anyone who runs it around
+  the program, and a kernel launched inside one is linked to it there.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict, deque
 
-__all__ = ["SpanStore", "NullSpanStore"]
+__all__ = ["SpanStore", "NullSpanStore", "span"]
 
 
 class SpanStore:
@@ -170,3 +180,22 @@ class NullSpanStore:
     def stats(self) -> dict:
         return {"tasks": 0, "spans": 0, "evicted_tasks": 0,
                 "dropped_spans": 0}
+
+
+_range = None
+
+
+def span(name: str):
+    """A profiler range named ``name``, as a context manager: a host op on
+    ``torch.profiler``'s timeline, where the device work launched inside it
+    is credited to it. It records no device event of its own (a
+    ``record_function`` annotation does, which would count as busy device
+    time) and costs well under a microsecond while no profiler runs. The
+    range must close on the thread that opened it: one that ends on another
+    thread is dropped from the profiler's tree. torch is imported on first
+    use, so the control plane's import of this module stays torch-free."""
+    global _range
+    if _range is None:
+        import torch
+        _range = torch._C._profiler._RecordFunctionFast
+    return _range(name)

@@ -20,19 +20,27 @@ serve steps take ``dist`` too: params placed by the rules, caches by
 replicated), tokens sharded over the batch axes (a plain tensor is placed
 by ``DistContext.shard_batch``); they return the logits whole on every
 rank, as the reference's unsharded outputs are.
+
+The train step opens the profiler ranges ``repro.train_step`` and, inside
+it, ``repro.forward``, ``repro.backward`` and ``repro.optimizer``; every
+kernel the step launches falls in exactly one of the three. The encoder
+call opens ``repro.encode`` (:func:`repro_torch.obs.trace.span`).
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.autograd import Variable
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.params import init_params, param_shapes
 from repro_torch.models.transformer import (forward, init_caches, model_spec,
                                             period_runner)
+from repro_torch.obs.trace import span
 from repro_torch.optim import (OptimizerConfig, adamw_init, adamw_update,
                                lr_at_step)
 from repro_torch.tree import leaves, register_node, tree_map, unflatten_as
@@ -103,6 +111,38 @@ def _loss_fn(params, cfg: ModelConfig, batch: dict, aux_weight: float,
     return loss, metrics
 
 
+class _BackwardSpan(torch.autograd.Function):
+    """The identity on the loss, whose backward opens ``repro.backward`` on
+    the thread that runs the backward where that is not the caller's: on
+    CUDA the autograd engine runs the backward's nodes on its device thread,
+    where a range opened by the caller would credit none of their kernels.
+    The range closes when the engine has finished the graph, on the thread
+    that ran its last node."""
+
+    @staticmethod
+    def forward(ctx, loss):
+        ctx.owner = threading.get_ident()
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, g):
+        if threading.get_ident() != ctx.owner:
+            rng = span("repro.backward")
+            rng.__enter__()
+            Variable._execution_engine.queue_callback(
+                lambda: rng.__exit__(None, None, None))
+        return g
+
+
+def _backward_root(loss):
+    """``loss`` as the root of the backward: under a running profiler
+    through :class:`_BackwardSpan`; else ``loss`` itself, nothing added to
+    the graph."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return _BackwardSpan.apply(loss)
+    return loss
+
+
 def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
                     dist: Any = None, remat: str = "none",
                     microbatch: int | None = None,
@@ -119,27 +159,28 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
     adt = torch_dtype(accum_dtype)
 
     def grad_fn(params, batch):
-        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        with torch.enable_grad():
+        with span("repro.forward"), torch.enable_grad():
+            flat = [p.detach().requires_grad_(True) for p in leaves(params)]
             loss, metrics = _loss_fn(unflatten_as(params, flat), cfg, batch,
                                      aux_w, dist, remat)
+        with span("repro.backward"):
             # every rank holds the loss; under dist each seeds its share
             # (DistContext.grad_seed) and the collectives' transposes sum
             seed = torch.full_like(loss, 1.0 if dist is None
                                    else dist.grad_seed)
             # a leaf the loss does not reach (hubert's token embedding: its
             # frames bypass it) gets zeros, as jax.grad gives
-            grads = torch.autograd.grad(loss, flat, grad_outputs=seed,
-                                        allow_unused=True,
+            grads = torch.autograd.grad(_backward_root(loss), flat,
+                                        grad_outputs=seed, allow_unused=True,
                                         materialize_grads=True)
-        if dist is not None:
-            # a gradient that left its region partial where its param is
-            # replicated (no redistribution on the way in) is summed here
-            grads = [g if tuple(g.placements) == tuple(p.placements)
-                     else g.redistribute(p.device_mesh, p.placements)
-                     for g, p in zip(grads, flat)]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, unflatten_as(params, list(grads))
+            if dist is not None:
+                # a gradient that left its region partial where its param is
+                # replicated (no redistribution on the way in) is summed here
+                grads = [g if tuple(g.placements) == tuple(p.placements)
+                         else g.redistribute(p.device_mesh, p.placements)
+                         for g, p in zip(grads, flat)]
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            return loss.detach(), metrics, unflatten_as(params, list(grads))
 
     def split(batch):
         """The microbatches: rows [i B/µ, (i+1) B/µ) of the global batch,
@@ -160,25 +201,33 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
         if not microbatch or microbatch <= 1:
             return grad_fn(params, batch)
         gacc, loss_sum, metrics = None, 0.0, None
-        for part in split(batch):
+        with span("repro.forward"):     # placing the parts feeds the forward
+            parts = split(batch)
+        for part in parts:
             loss, metrics, g = grad_fn(params, part)
-            g = tmap(lambda x: x.to(adt), g)
-            gacc = g if gacc is None else tmap(torch.add, gacc, g)
-            loss_sum = loss_sum + loss
-        grads = tmap(lambda g: g / microbatch, gacc)
-        return loss_sum / microbatch, metrics, grads
+            with span("repro.backward"):    # the accumulation is backward's
+                g = tmap(lambda x: x.to(adt), g)
+                gacc = g if gacc is None else tmap(torch.add, gacc, g)
+                loss_sum = loss_sum + loss
+        with span("repro.backward"):
+            grads = tmap(lambda g: g / microbatch, gacc)
+            return loss_sum / microbatch, metrics, grads
 
     def train_step(state: TrainState, batch: dict):
-        loss, metrics, grads = compute_grads(state.params, batch)
-        step = state.step if dist is None else state.step.to_local()
-        lr = lr_at_step(step, base_lr=ocfg.lr,
-                        warmup_steps=ocfg.warmup_steps,
-                        total_steps=ocfg.total_steps, schedule=ocfg.schedule)
-        update = adamw_update if dist is None else dist.adamw_update
-        params, opt, stats = update(state.params, grads, state.opt, ocfg, lr)
-        metrics = dict(metrics, loss=loss, **stats)
-        return TrainState(params, opt, tmap(lambda s: s + 1, state.step)), \
-            metrics
+        with span("repro.train_step"):
+            loss, metrics, grads = compute_grads(state.params, batch)
+            with span("repro.optimizer"):
+                step = state.step if dist is None else state.step.to_local()
+                lr = lr_at_step(step, base_lr=ocfg.lr,
+                                warmup_steps=ocfg.warmup_steps,
+                                total_steps=ocfg.total_steps,
+                                schedule=ocfg.schedule)
+                update = adamw_update if dist is None else dist.adamw_update
+                params, opt, stats = update(state.params, grads, state.opt,
+                                            ocfg, lr)
+                new_step = tmap(lambda s: s + 1, state.step)
+        return TrainState(params, opt, new_step), \
+            dict(metrics, loss=loss, **stats)
 
     return train_step
 
@@ -214,9 +263,10 @@ def make_prefill_step(cfg: ModelConfig, *, dist: Any = None) -> Callable:
     if cfg.encoder_only:
         @torch.no_grad()
         def prefill_enc(params, batch):
-            logits, _, _ = forward(params, cfg, _placed(batch, dist),
-                                   dist=dist)
-            return _whole(logits)
+            with span("repro.encode"):
+                logits, _, _ = forward(params, cfg, _placed(batch, dist),
+                                       dist=dist)
+                return _whole(logits)
         return prefill_enc
 
     @torch.no_grad()

@@ -48,6 +48,74 @@ COPIED = [
 # tests/test_torch_models.py, not textually)
 PORTED = {"serve/engine.py"}
 
+# the port's step spans (profiler ranges around the model code, which the
+# reference has no use for): the helper, and where the docs name them
+SPANS_DOC = """
+
+Step spans — :func:`span`, profiler ranges inside the model code, which
+record nothing unless ``torch.profiler`` runs around them:
+
+- ``repro.train_step``: one train step; inside it ``repro.forward`` (the
+  model and the loss), ``repro.backward`` (everything ``autograd.grad``
+  launches, remat's recomputation included; on CUDA it is opened again on
+  the autograd engine's device thread, which runs the backward's kernels)
+  and ``repro.optimizer`` (learning rate, clipping, AdamW, the step count);
+- ``repro.encode``: one encoder call (``make_prefill_step``);
+- ``repro.mixer`` and ``repro.ffn``: each block's norm, mixing layer and
+  residual add, and its second norm, MLP or MoE and add;
+- ``repro.kernel.ssd_scan``, ``repro.kernel.ssd_scan_bwd``,
+  ``repro.kernel.flash_attention``, ``repro.kernel.flash_attention_bwd``:
+  the hand kernels' launches.
+
+To see them, profile a few steps and open the trace in Perfetto or
+``chrome://tracing``::
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace("steps.json")
+
+A kernel launched inside a range is linked to it by the profiler's
+correlation id, so the device time under each range can be summed.
+"""
+
+TRACE_LEVELS_DOC = """
+
+The port traces at two levels:
+
+* task spans, in the :class:`SpanStore` above: the control plane's hops of
+  each task, kept by the broker;
+* step spans, as profiler ranges (:func:`span`): the train step's forward,
+  backward and optimizer, the encoder call, each block's mixer and FFN, and
+  the hand kernels' launches, named ``repro.<what>``. Nothing keeps them;
+  they appear on ``torch.profiler``'s timeline for anyone who runs it around
+  the program, and a kernel launched inside one is linked to it there.
+"""
+
+SPAN_HELPER = '''
+
+_range = None
+
+
+def span(name: str):
+    """A profiler range named ``name``, as a context manager: a host op on
+    ``torch.profiler``'s timeline, where the device work launched inside it
+    is credited to it. It records no device event of its own (a
+    ``record_function`` annotation does, which would count as busy device
+    time) and costs well under a microsecond while no profiler runs. The
+    range must close on the thread that opened it: one that ends on another
+    thread is dropped from the profiler's tree. torch is imported on first
+    use, so the control plane's import of this module stays torch-free."""
+    global _range
+    if _range is None:
+        import torch
+        _range = torch._C._profiler._RecordFunctionFast
+    return _range(name)
+'''
+
 # (original text, replacement) applied after the rename; each original text
 # must occur in the reference, so a change there shows up here.
 DELIBERATE = {
@@ -65,6 +133,23 @@ DELIBERATE = {
          "    return msgpack\n"),
         ("msgpack.packb(", "_msgpack().packb("),
         ("msgpack.unpackb(", "_msgpack().unpackb("),
+    ],
+    "obs/__init__.py": [
+        ("``BENCH_obs.json``).\n\"\"\"\n",
+         "``BENCH_obs.json``)." + SPANS_DOC + "\"\"\"\n"),
+        ("from .trace import NullSpanStore, SpanStore\n",
+         "from .trace import NullSpanStore, SpanStore, span\n"),
+        ('    "NullSpanStore",\n', '    "NullSpanStore",\n    "span",\n'),
+    ],
+    "obs/trace.py": [
+        ("history is visible.\n\"\"\"\n",
+         "history is visible." + TRACE_LEVELS_DOC + "\"\"\"\n"),
+        ('__all__ = ["SpanStore", "NullSpanStore"]\n',
+         '__all__ = ["SpanStore", "NullSpanStore", "span"]\n'),
+        ('        return {"tasks": 0, "spans": 0, "evicted_tasks": 0,\n'
+         '                "dropped_spans": 0}\n',
+         '        return {"tasks": 0, "spans": 0, "evicted_tasks": 0,\n'
+         '                "dropped_spans": 0}\n' + SPAN_HELPER),
     ],
 }
 
