@@ -14,8 +14,9 @@ for a CPU tensor:
   plain version), reached by the model through ``models.ssd.ssd_chunked``;
 * ``flash_attention.flash_attention`` — whole-sequence GQA attention,
   causal, sliding-window or bidirectional (``csrc/flash_attention.cu``,
-  CUDA C++ for ``sm_90a``: a tensor-core forward that also writes the
-  rows' log-sum-exp, and a backward kernel behind ``FlashAttentionFn``;
+  CUDA C++ for ``sm_90a``: a tensor-core forward, wgmma and TMA up to
+  D = 128 in bf16, that also writes the rows' log-sum-exp, and a backward
+  kernel behind ``FlashAttentionFn``;
   their plain versions are the model's ``chunked_attention``,
   ``flash_attention_lse_plain`` and ``flash_attention_bwd_plain``),
   reached by the model's whole-sequence forward (training, encoder-only)

@@ -35,31 +35,69 @@
 // 68.7 GFLOP against 42 MB of Q, K, V and O: ~69 us at the bf16
 // tensor-core rate, ~13 us of bandwidth. The backward's five products are
 // 10 D operations a live pair, ~174 us. A local layer (window 512) is a
-// quarter of that.
+// quarter of that. At hubert's encoder layer (B = 1, S = 32768, H = 16,
+// D = 80, bidirectional) the forward is 5.50e12 operations, 5.56 ms at the
+// bf16 rate, and 16 S^2 H = 1.7e10 exponentials, ~4.6 ms at the 16 ex2 a
+// clock an SM does: at D = 80 the softmax weighs almost as much as the
+// products, and the forward is bound by the two together.
 //
-// Design, bfloat16 (the training path):
+// Design, bfloat16 forward, D <= 128 (flash_fwd_wgmma_kernel, namespace
+// hop): Hopper's wgmma, fed by TMA, warp-specialised and persistent.
+//  * Work items of 2 x 64 rows: row r of a warpgroup's 64 is position
+//    q0 + r / G of head kh G + r % G (64 / G positions times the whole GQA
+//    group), so each K/V tile is read once for all G heads and serves 128
+//    rows. One block an SM walks the items; bidirectional items run
+//    head-major (query tile fastest), so the blocks in flight share one
+//    head's K and V in L2 (10.5 MB at S = 32768 against 50 MB); causal
+//    items run longest first.
+//  * A producer warp brings Q (once an item, into one of two slots, so the
+//    next item's Q loads under this one) and K and V tiles of 128 keys by
+//    TMA into a ring of 2-3 stages with full/empty mbarrier pairs; K and V
+//    have their own barriers, so a stage's K is reloaded as soon as S has
+//    read it. Rows
+//    past the tensor's end arrive as zeros, and those keys are masked to
+//    -inf (a zero key scores 0, not -inf). The tensor maps are built on the
+//    host for each launch from the strides (cuTensorMapEncodeTiled, fetched
+//    through the runtime).
+//  * Layout: a tile's columns are regions of 64 (128-byte rows, 128-byte
+//    swizzle) and then the rest, 16 or 32 columns (32- or 64-byte rows and
+//    swizzle): D = 80 is 64 + 16, not padded to 96 or 128 (20-60% more
+//    tensor work). S = Q K^T is wgmma m64n128k16 with Q and K from shared
+//    memory, both K-major: D / 16 k-steps over the regions. O += P V is
+//    wgmma with p in registers (rounded to bf16) as A and V MN-major, one
+//    product a region (n64, n32 or n16) for each 16 keys.
+//  * Two consumer warpgroups take turns on the tensor cores (named
+//    barriers): each issues its S_i = Q K_i^T and O += P_{i-1} V_{i-1}
+//    together, hands the turn on and runs S_i's max, ex2 and row sums
+//    while its own P V and the other warpgroup's products run. setmaxnreg
+//    gives the consumers 232 registers and the producer 40.
+//  * Key tiles that no (query, key) pair of the item needs are never
+//    loaded (the Pallas `live` predicate, :44-53): causal items stop at the
+//    tile of their last query, windowed ones start at the tile of their
+//    first query's first key, so a local layer does O(S * window) work.
+//    Only tiles that straddle a mask edge are masked element by element.
+//  * Numerics as the design below: fp32 scores, running max and sum in
+//    base 2, p rounded to bf16 only as the P.V operand while the running
+//    sum adds the unrounded p, a fixed summation order (two runs are
+//    bit-identical).
+//
+// Design, bfloat16 at D = 256 (the training path of gemma3-1b), and the
+// backward for every D:
 //  * Tensor cores: every product is mma.sync m16n8k16 (bf16 in, fp32
 //    accumulate) on fragments read with ldmatrix straight from bf16 tiles in
 //    shared memory (rows padded by 16 bytes, so the 8 rows of an ldmatrix
 //    fall in distinct banks). Nothing is widened to fp32 in shared memory.
-//  * Forward: one block of 4 warps per (64 query rows, KV head, batch row).
-//    The 64 rows are 64 / G positions times the whole GQA group of G query
-//    heads, so each K/V tile is read once for all G heads. A warp owns 16
-//    rows: its scores, the online softmax (max and sum) and its (16, D)
-//    accumulator stay in fp32 registers, and p goes from the score
-//    accumulators to the P.V product's A operand in registers (rounded to
-//    bf16). K/V tiles (64 keys, 32 at D = 256: 2 x 32 x 528 B a stage) are
-//    staged with cp.async in a 2-stage ring, so tile j + 1 loads while tile
-//    j is multiplied; Q and the two stages take 101 KB at D = 256 and two
-//    blocks fit on an SM.
-//  * Key tiles that no (query, key) pair of the block needs are never
-//    visited (the Pallas `live` predicate, :44-53): with causal masking the
-//    loop stops at the tile of the block's last query, and with a window it
-//    starts at the tile of its first query's first key, so a local layer
-//    does O(S * window) work. Only tiles that straddle a mask edge are
-//    masked element by element.
-//  * Causal q tiles launch longest first (the last tile sees the most keys)
-//    so the heaviest blocks do not form the last wave.
+//  * Forward at D = 256 (flash_tc_kernel): its 64 x 256 fp32 accumulator is
+//    128 registers a thread before any score, another tiling than the
+//    Hopper design's. One block of 4 warps per (64 query rows, KV head,
+//    batch row), rows folded as above. A warp owns 16 rows: its scores, the
+//    online softmax (max and sum) and its (16, D) accumulator stay in fp32
+//    registers, and p goes from the score accumulators to the P.V product's
+//    A operand in registers (rounded to bf16). K/V tiles of 32 keys (2 x 32
+//    x 528 B a stage) are staged with cp.async in a 2-stage ring, so tile
+//    j + 1 loads while tile j is multiplied; Q and the two stages take
+//    101 KB and two blocks fit on an SM. Live tiles and edge masks as
+//    above; causal q tiles launch longest first.
 //  * Backward, two passes and no atomics, after a small pass that forms
 //    Delta. Pass 1 (dK, dV): one block of 8 warps per (key tile, KV head,
 //    batch row) loops over every query tile of all G heads of its group
@@ -76,23 +114,23 @@
 //    at B = 2, S = 4096 has only 256 such blocks, one uneven wave: there
 //    (and wherever the blocks are too few to fill the card) each key tile's
 //    query range is split over several blocks, whose fp32 partials a last
-//    pass sums in split order. Pass 2 (dQ): the forward's layout (64 folded
-//    rows a block, live key tiles only) recomputes S and dP and accumulates
-//    dQ += dS K in registers. Each output is summed in a fixed order: two
-//    runs are bit-identical.
-//  * The cost of mma.sync at D = 256: a warp's 16-row tiles reload their
-//    operand fragments from shared memory for every product, and the
-//    backward's lock-step iterations wait on barriers; wgmma with TMA and
-//    warp specialisation are left for later work.
+//    pass sums in split order. Pass 2 (dQ): 64 folded rows a block, live
+//    key tiles only, recomputes S and dP and accumulates dQ += dS K in
+//    registers. Each output is summed in a fixed order: two runs are
+//    bit-identical.
+//  * The cost of mma.sync: a warp's 16-row tiles reload their operand
+//    fragments from shared memory for every product, and the backward's
+//    lock-step iterations wait on barriers; a wgmma backward is later work.
 //
 // Float32: the forward is the FMA kernel of the first port (flash_kernel
 // below: Q, K, V in fp32 shared memory, fp32 FMA micro-tiles, key tiles of
 // 32 at D = 256 and 64 below), which also serves bf16 when the launch asks
-// for it, to time that design beside this one. The backward runs the same
+// for it, to time that design beside the others. The backward runs the same
 // tiling as bf16, with each m16n8k16 product done as fp32 FMAs on the same
 // fragment layout (operands gathered by warp shuffles): no TF32, so it
 // agrees with the plain version to float32 round-off.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -931,6 +969,639 @@ __global__ void __launch_bounds__(TC_THREADS, 2) flash_tc_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// forward, Hopper design (bf16, D <= 128): wgmma on tiles that TMA brings
+// into an mbarrier ring; one producer warp, two consumer warpgroups taking
+// turns on the tensor cores; one persistent block an SM
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int C = 2;          // consumer warpgroups
+constexpr int WG_ROWS = 64;   // query rows a consumer warpgroup
+constexpr int BN = 128;       // keys a tile
+constexpr int THREADS = 128 * (C + 1);  // the last warpgroup loads
+// registers a thread: the producer's few, the consumers' the rest of 64 K
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int BAR_TURN = 1;   // named barriers 1..C: the consumers' turns
+
+// A (rows, D) tile is stored as regions of columns: D / 64 regions of 64
+// columns (rows of 128 bytes) and then the rest, 16 or 32 columns (rows of
+// 32 or 64 bytes), each region (rows x its row bytes) swizzled by TMA with
+// the pattern of its row width, which the wgmma descriptors name. D = 80 is
+// one region of 64 and one of 16: padding it to 96 or 128 would be the same
+// arithmetic with 20-60% more tensor work.
+//
+// Two consumer warpgroups of 232 registers a thread hold S (64), p (32)
+// and O (D / 2) with room; three (192 rows, 160 registers) spilled and
+// serialised their products on the card at D = 80.
+template <int D>
+struct Hop {
+  static constexpr int NA = D / 64;  // regions of 64 columns
+  static constexpr int WB = D % 64;  // the last region's columns (0: none)
+  static_assert(WB == 0 || WB == 16 || WB == 32, "head dims 16..128");
+  static constexpr int Q_WG = WG_ROWS * D * 2;  // a warpgroup's Q, bytes
+  static constexpr int KV = BN * D * 2;         // a K or a V tile, bytes
+  static_assert(Q_WG % 1024 == 0 && KV % 1024 == 0, "regions on 1024 B");
+  // K/V stages: three up to D = 80 (two ran 1.6x slower at hubert's
+  // D = 80); two at D = 128, where three do not fit beside two Q slots
+  static constexpr int STAGES = D > 80 ? 2 : 3;
+  static constexpr int BARS = 4 + 4 * STAGES;
+  // Q in two slots, so that the next item's Q loads under this item
+  static constexpr size_t SMEM = 1024 + 2 * C * Q_WG +
+                                 2 * STAGES * static_cast<size_t>(KV) +
+                                 8 * BARS;
+};
+
+struct Maps {  // TMA descriptors: Q, K and V, 64-column and last regions
+  CUtensorMap q_a, q_b, k_a, k_b, v_a, v_b;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box of the 4-d tensor (D, heads, positions, B) into shared memory;
+// the box's bytes complete a transaction on `bar`, zeros past each end
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// every region of one tile of R rows, each from its columns of the tensor
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap& a,
+                                          const CUtensorMap& b, uint32_t bar,
+                                          int head, int pos, int batch) {
+#pragma unroll
+  for (int i = 0; i < Hop<D>::NA; ++i)
+    tma_load(dst + i * R * 128, a, bar, 64 * i, head, pos, batch);
+  if (Hop<D>::WB)
+    tma_load(dst + Hop<D>::NA * R * 128, b, bar, 64 * Hop<D>::NA, head, pos,
+             batch);
+}
+
+// wgmma's shared-memory descriptor of a region whose rows are `row_bytes`
+// (128, 64 or 32: the swizzle of the same width), 8-row groups 8 rows
+// apart (the stride byte offset). K-major operands (Q, K) read 16 columns
+// from the start address, which steps 32 bytes a k-step inside the
+// swizzled row; their leading byte offset is unused. V is read MN-major
+// (`mn`), one swizzle atom across its N, stepping 16 rows a k-step; its
+// leading byte offset, the step to a next atom across N, is never taken
+// and is given the 8-row stride too.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, int row_bytes,
+                                         bool mn) {
+  const uint64_t groups = (8 * row_bytes) >> 4;  // 16-byte units
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return ((addr & 0x3FFFF) >> 4) | ((mn ? groups : 1) << 16) |
+         (groups << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes: the compiler may
+// not move their other uses across this point (placed after each wait);
+// also what must be computed before a wait.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(float& a, float& b, float& c, float& d) {
+  asm volatile("" : "+f"(a), "+f"(b), "+f"(c), "+f"(d)::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The warpgroups take turns issuing their products, in a ring: a
+// warpgroup waits for its turn (its barrier: its own 128 threads and the
+// previous warpgroup's 128), and hands the turn to the next once its
+// products are issued, so one warpgroup's softmax runs while another's
+// products do.
+__device__ __forceinline__ void turn_begin(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(BAR_TURN + wg), "n"(256)
+               : "memory");
+}
+__device__ __forceinline__ void turn_end(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(BAR_TURN + (wg + 1) % C), "n"(256)
+               : "memory");
+}
+
+// d (64 x 128) (+)= A (64 x 16, shared, K-major) . B (128 x 16, shared,
+// K-major)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[OFF ..] (64 x 16) += A (64 x 16, registers) . B (16 x 16, shared,
+// MN-major)
+template <int OFF, int ND>
+__device__ __forceinline__ void wgmma_rs_16(float (&d)[ND],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[OFF ..] (64 x 32) += A (64 x 16, registers) . B (16 x 32, shared,
+// MN-major)
+template <int OFF, int ND>
+__device__ __forceinline__ void wgmma_rs_32(float (&d)[ND],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[OFF ..] (64 x 64) += A (64 x 16, registers) . B (16 x 64, shared,
+// MN-major)
+template <int OFF, int ND>
+__device__ __forceinline__ void wgmma_rs_64(float (&d)[ND],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// S (64 x BN) = Q (64 x D) . K (BN x D)^T over every region's k-steps
+template <int D>
+__device__ __forceinline__ void qk(float (&sc)[BN / 2], uint32_t q_s,
+                                   uint32_t k_s) {
+  constexpr int NA = Hop<D>::NA, WB = Hop<D>::WB;
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const uint64_t a = desc(q_s + i * WG_ROWS * 128, 128, false);
+    const uint64_t b = desc(k_s + i * BN * 128, 128, false);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sc, a + 2 * kk, b + 2 * kk, i | kk);
+  }
+  if constexpr (WB > 0) {
+    const uint64_t a = desc(q_s + NA * WG_ROWS * 128, 2 * WB, false);
+    const uint64_t b = desc(k_s + NA * BN * 128, 2 * WB, false);
+#pragma unroll
+    for (int kk = 0; kk < WB / 16; ++kk)
+      wgmma_ss(sc, a + 2 * kk, b + 2 * kk, NA | kk);
+  }
+}
+
+// O (64 x D) += P (64 x BN, registers, bf16) . V (BN x D), one product a
+// region for each 16 keys
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2],
+                                   const uint32_t (&pf)[BN / 16][4],
+                                   uint32_t v_s) {
+  constexpr int NA = Hop<D>::NA, WB = Hop<D>::WB;
+  const uint64_t a0 = desc(v_s, 128, true);
+  const uint64_t a1 = desc(v_s + BN * 128, 128, true);
+  const uint64_t b = desc(v_s + NA * BN * 128, WB ? 2 * WB : 32, true);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    if constexpr (NA >= 1) wgmma_rs_64<0>(o, pf[kk], a0 + kk * 128);
+    if constexpr (NA >= 2) wgmma_rs_64<32>(o, pf[kk], a1 + kk * 128);
+    if constexpr (WB == 16) wgmma_rs_16<32 * NA>(o, pf[kk], b + kk * 32);
+    if constexpr (WB == 32) wgmma_rs_32<32 * NA>(o, pf[kk], b + kk * 64);
+  }
+}
+
+// Work item `item` of the persistent grid: a block of C x 64 rows (C x
+// WG_ROWS / G positions, the whole GQA group at each) of one KV head and
+// batch row. Bidirectional items run head-major (query tile fastest), so
+// the blocks in flight share one head's K and V in L2; causal items run
+// longest first, as row_block.
+__device__ __forceinline__ RowBlock hop_item(const Params& p, int item) {
+  const int bm = p.block_m;
+  const int n_qt = (p.Sq + bm - 1) / bm;
+  int qt, rest;
+  if (p.causal) {
+    const int per = p.K * p.B;
+    qt = n_qt - 1 - item / per;
+    rest = item % per;
+  } else {
+    qt = item % n_qt;
+    rest = item / n_qt;
+  }
+  RowBlock rb;
+  rb.kh = rest % p.K;
+  rb.b = rest / p.K;
+  rb.q0 = qt * bm;
+  rb.n_pos = min(bm, p.Sq - rb.q0);
+  rb.n_rows = rb.n_pos * p.G;
+  rb.q_lo = p.q_offset + rb.q0;
+  rb.q_hi = rb.q_lo + rb.n_pos - 1;
+  return rb;
+}
+
+__host__ __device__ __forceinline__ int n_items(const Params& p) {
+  return ((p.Sq + p.block_m - 1) / p.block_m) * p.K * p.B;
+}
+
+// Masks the tile's scores (rows r_lo, r_lo + 8 at positions pos_lo,
+// pos_hi; keys k0 + 8 j + 2 c + e) unless every pair is valid, updates the
+// running max (base 2) and the thread's partial sums, and leaves p in sc;
+// returns the factors that rescale the rows' earlier sums.
+__device__ __forceinline__ void softmax(float (&sc)[BN / 2], const Params& p,
+                                        bool full, int k0, int c, int pos_lo,
+                                        int pos_hi, float scale2, float& m_lo,
+                                        float& m_hi, float& l_lo, float& l_hi,
+                                        float& corr_lo, float& corr_hi) {
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * c + e;
+        if (!key_ok(p, key, pos_lo)) sc[4 * j + e] = -INFINITY;
+        if (!key_ok(p, key, pos_hi)) sc[4 * j + 2 + e] = -INFINITY;
+      }
+  }
+  // the row maxima over four independent chains (the max is exact in any
+  // order)
+  float mx[2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mx[0][i] = mx[1][i] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[0][(2 * j + e) % 4] = fmaxf(mx[0][(2 * j + e) % 4], sc[4 * j + e]);
+      mx[1][(2 * j + e) % 4] =
+          fmaxf(mx[1][(2 * j + e) % 4], sc[4 * j + 2 + e]);
+    }
+  const float mx_lo =
+      fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  const float mx_hi =
+      fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo) * scale2);
+  const float mn_hi = fmaxf(m_hi, quad_max(mx_hi) * scale2);
+  // a row that has seen no valid key keeps m = -inf and p = 0
+  const float mu_lo = mn_lo == -INFINITY ? 0.0f : mn_lo;
+  const float mu_hi = mn_hi == -INFINITY ? 0.0f : mn_hi;
+  corr_lo = ex2(m_lo - mu_lo);
+  corr_hi = ex2(m_hi - mu_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 = ex2(fmaf(sc[4 * j + e], scale2, -mu_lo));
+      const float p1 = ex2(fmaf(sc[4 * j + 2 + e], scale2, -mu_hi));
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+      sum_lo += p0;
+      sum_hi += p1;
+    }
+  l_lo = l_lo * corr_lo + sum_lo;
+  l_hi = l_hi * corr_hi + sum_hi;
+}
+
+// p as the P.V product's A operand, rounded to bf16: keys 16 kk .. 16 kk
+// + 15 are accumulator tiles 2 kk and 2 kk + 1
+__device__ __forceinline__ void to_p(uint32_t (&pf)[BN / 16][4],
+                                     const float (&sc)[BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ Params p,
+                           const __grid_constant__ Maps maps) {
+  using H = Hop<D>;
+  constexpr int S = H::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // regions start on 1024-byte boundaries, where every swizzle pattern
+  // starts over
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_addr(base);
+  const uint32_t k_s0 = s0 + 2 * C * H::Q_WG;
+  const uint32_t v_s0 = k_s0 + S * H::KV;
+  const uint32_t bars = v_s0 + S * H::KV;
+  auto full_q = [&](int slot) { return bars + 8 * slot; };
+  auto empty_q = [&](int slot) { return bars + 16 + 8 * slot; };
+  auto full_k = [&](int s) { return bars + 32 + 8 * s; };
+  auto empty_k = [&](int s) { return bars + 32 + 8 * (S + s); };
+  auto full_v = [&](int s) { return bars + 32 + 8 * (2 * S + s); };
+  auto empty_v = [&](int s) { return bars + 32 + 8 * (3 * S + s); };
+
+  // Q rows that no load reaches (64 % G of them) stay zero
+  for (int i = threadIdx.x; i < 2 * C * H::Q_WG / 16; i += THREADS)
+    reinterpret_cast<uint4*>(base)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(full_q(slot), 1);
+      mbar_init(empty_q(slot), C);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(empty_k(s), C);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int npos = WG_ROWS / p.G;  // positions a consumer warpgroup
+  const int items = n_items(p);
+
+  if (wg == C) {
+    // the producer: one thread walks the items and keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != C * 128) return;
+    const int q_bytes = C * npos * p.G * D * 2;
+    int it = 0, qi = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++qi) {
+      const RowBlock rb = hop_item(p, item);
+      const int slot = qi & 1;  // the item's Q slot; qi >> 1 its use of it
+      mbar_wait(empty_q(slot), ((qi >> 1) & 1) ^ 1);
+      mbar_expect(full_q(slot), q_bytes);
+#pragma unroll
+      for (int w = 0; w < C; ++w)
+        load_tile<D, WG_ROWS>(s0 + (slot * C + w) * H::Q_WG, maps.q_a,
+                              maps.q_b, full_q(slot),
+                              rb.kh * p.G, rb.q0 + w * npos, rb.b);
+      int t_begin, t_end;
+      live_tiles(p, rb, BN, t_begin, t_end);
+      for (int t = t_begin; t < t_end; ++t, ++it) {
+        const int s = it % S;
+        const uint32_t ph = (it / S) & 1;
+        mbar_wait(empty_k(s), ph ^ 1);
+        mbar_expect(full_k(s), H::KV);
+        load_tile<D, BN>(k_s0 + s * H::KV, maps.k_a, maps.k_b, full_k(s),
+                         rb.kh, t * BN, rb.b);
+        mbar_wait(empty_v(s), ph ^ 1);
+        mbar_expect(full_v(s), H::KV);
+        load_tile<D, BN>(v_s0 + s * H::KV, maps.v_a, maps.v_b, full_v(s),
+                         rb.kh, t * BN, rb.b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 rows of each item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int r_lo = 16 * warp + g;  // this thread's rows: r_lo, r_lo + 8
+  const float scale2 = p.scale * LOG2E;  // scores in base-2 units
+  bf16* og = static_cast<bf16*>(p.out);
+  if (wg == C - 1) turn_end(wg);  // warpgroup 0 takes the first turn
+
+  int it = 0, qi = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++qi) {
+    const RowBlock rb = hop_item(p, item);
+    int t_begin, t_end;
+    live_tiles(p, rb, BN, t_begin, t_end);
+    const int n = t_end - t_begin;
+    const int first = wg * npos;  // this warpgroup's first position
+    const int pos_lo = rb.q_lo + first + r_lo / p.G;
+    const int pos_hi = rb.q_lo + first + (r_lo + 8) / p.G;
+
+    float o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.0f, l_hi = 0.0f;
+    const int slot = qi & 1;
+    const uint32_t q_s = s0 + (slot * C + wg) * H::Q_WG;
+    mbar_wait(full_q(slot), (qi >> 1) & 1);
+    if (n > 0) {
+      float sc[BN / 2];
+      uint32_t pf[BN / 16][4];
+      float corr_lo, corr_hi;
+      int s = it % S;
+      uint32_t ph = (it / S) & 1;
+      // the first tile: S = Q K^T, then its softmax
+      turn_begin(wg);
+      mbar_wait(full_k(s), ph);
+      wg_fence();
+      qk<D>(sc, q_s, k_s0 + s * H::KV);
+      wg_commit();
+      turn_end(wg);
+      wg_wait<0>();
+      keep(sc);
+      if (tid == 0) {
+        mbar_arrive(empty_k(s));
+        if (n == 1) mbar_arrive(empty_q(slot));
+      }
+      softmax(sc, p, tile_full(p, rb, t_begin * BN, BN), t_begin * BN, c,
+                  pos_lo, pos_hi, scale2, m_lo, m_hi, l_lo, l_hi, corr_lo,
+                  corr_hi);
+      to_p(pf, sc);
+      int ps = s;
+      uint32_t pph = ph;
+      ++it;
+      // tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} issued together;
+      // S_i's softmax runs while P_{i-1} V_{i-1} does
+      for (int i = 1; i < n; ++i, ++it) {
+        s = it % S;
+        ph = (it / S) & 1;
+        const int k0 = (t_begin + i) * BN;
+        turn_begin(wg);
+        mbar_wait(full_k(s), ph);
+        mbar_wait(full_v(ps), pph);  // no branch between the products
+        wg_fence();
+        qk<D>(sc, q_s, k_s0 + s * H::KV);
+        wg_commit();
+        pv<D>(o, pf, v_s0 + ps * H::KV);
+        wg_commit();
+        turn_end(wg);
+        wg_wait<1>();
+        keep(sc);
+        if (tid == 0) {
+          mbar_arrive(empty_k(s));
+          if (i == n - 1) mbar_arrive(empty_q(slot));
+        }
+        softmax(sc, p, tile_full(p, rb, k0, BN), k0, c, pos_lo, pos_hi,
+                    scale2, m_lo, m_hi, l_lo, l_hi, corr_lo, corr_hi);
+        // the softmax is done before the wait, under the P V in flight
+        keep(sc);
+        keep(l_lo, l_hi, corr_lo, corr_hi);
+        wg_wait<0>();
+        keep(o);
+        keep(pf);
+        if (tid == 0) mbar_arrive(empty_v(ps));
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr_lo;
+          o[4 * j + 1] *= corr_lo;
+          o[4 * j + 2] *= corr_hi;
+          o[4 * j + 3] *= corr_hi;
+        }
+        to_p(pf, sc);
+        ps = s;
+        pph = ph;
+      }
+      // the last tile's P V
+      turn_begin(wg);
+      mbar_wait(full_v(ps), pph);
+      wg_fence();
+      pv<D>(o, pf, v_s0 + ps * H::KV);
+      wg_commit();
+      turn_end(wg);
+      wg_wait<0>();
+      keep(o);
+      keep(pf);
+      if (tid == 0) mbar_arrive(empty_v(ps));
+    } else if (tid == 0) {
+      mbar_arrive(empty_q(slot));
+    }
+
+    // out = O / l in bf16 (exact zeros for a row with no valid key), lse
+    l_lo = quad_sum(l_lo);
+    l_hi = quad_sum(l_hi);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_lo + 8 * half;
+      const int pi = first + r / p.G;  // position within the block
+      if (r >= npos * p.G || pi >= rb.n_pos) continue;
+      const float l = half ? l_hi : l_lo;
+      const float m = half ? m_hi : m_lo;
+      const float inv = 1.0f / fmaxf(l, 1e-37f);
+      const int h = rb.kh * p.G + r % p.G;
+      const int i = rb.q0 + pi;
+      bf16* orow =
+          og + ((static_cast<long long>(rb.b) * p.Sq + i) * p.H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(orow + 8 * j + 2 * c, o[4 * j + 2 * half] * inv,
+               o[4 * j + 2 * half + 1] * inv);
+      if (c == 0)
+        p.lse[(static_cast<long long>(rb.b) * p.H + h) * p.Sq + i] =
+            l > 0.0f ? (m + log2f(l)) * LN2 : -INFINITY;
+    }
+  }
+  if (wg == 0) turn_begin(wg);  // the last warpgroup's last hand-over
+}
+
+}  // namespace hop
+
+// ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
 
@@ -1429,6 +2100,112 @@ int launch_tc(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime, so
+// that the library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA descriptor of a bf16 (B, positions, heads, D) tensor seen as 4-d
+// (D, heads, positions, B), element strides s_head, s_pos, s_b, read in
+// boxes of (width, box_heads, box_pos, 1) with the swizzle of 2 x width
+// bytes; past either end of an axis the box reads zeros. 0 or an error.
+int tensor_map(CUtensorMap* map, const void* ptr, int D, int heads,
+               int positions, int B, long long s_head, long long s_pos,
+               long long s_b, int width, int box_heads, int box_pos) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(positions),
+                        static_cast<cuuint64_t>(B)};
+  const long long strides_el[3] = {s_head, s_pos, s_b};
+  cuuint64_t strides[3];
+  cuuint64_t packed = static_cast<cuuint64_t>(D) * 2;
+  for (int i = 0; i < 3; ++i) {
+    // an axis of one element is never stepped: give it the packed stride
+    strides[i] = dims[i + 1] == 1 ? packed
+                                  : static_cast<cuuint64_t>(strides_el[i]) * 2;
+    packed = strides[i] * dims[i + 1];
+  }
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(width),
+                       static_cast<cuuint32_t>(box_heads),
+                       static_cast<cuuint32_t>(box_pos), 1u};
+  cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  const CUtensorMapSwizzle swizzle =
+      width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = max(n, 1);
+  if (dev < 64) cached[dev] = n;
+  return n;
+}
+
+template <int D>
+int launch_wgmma(const Params& p0, cudaStream_t stream) {
+  using H = hop::Hop<D>;
+  Params p = p0;
+  const int npos = hop::WG_ROWS / p.G;
+  p.block_m = hop::C * npos;
+  const int wa = D >= 64 ? 64 : D;   // the 64-column regions' width
+  const int wb = H::WB ? H::WB : wa;  // the last region's
+  hop::Maps m;
+  int e = 0;
+  if (!e) e = tensor_map(&m.q_a, p.q, D, p.H, p.Sq, p.B, p.q_s2, p.q_s1,
+                         p.q_s0, wa, p.G, npos);
+  if (!e) e = tensor_map(&m.q_b, p.q, D, p.H, p.Sq, p.B, p.q_s2, p.q_s1,
+                         p.q_s0, wb, p.G, npos);
+  if (!e) e = tensor_map(&m.k_a, p.k, D, p.K, p.Sk, p.B, p.k_s2, p.k_s1,
+                         p.k_s0, wa, 1, hop::BN);
+  if (!e) e = tensor_map(&m.k_b, p.k, D, p.K, p.Sk, p.B, p.k_s2, p.k_s1,
+                         p.k_s0, wb, 1, hop::BN);
+  if (!e) e = tensor_map(&m.v_a, p.v, D, p.K, p.Sk, p.B, p.v_s2, p.v_s1,
+                         p.v_s0, wa, 1, hop::BN);
+  if (!e) e = tensor_map(&m.v_b, p.v, D, p.K, p.Sk, p.B, p.v_s2, p.v_s1,
+                         p.v_s0, wb, 1, hop::BN);
+  if (e) return e;
+  if ((e = set_smem(hop::flash_fwd_wgmma_kernel<D>, H::SMEM))) return e;
+  const int grid = min(hop::n_items(p), sm_count());
+  hop::flash_fwd_wgmma_kernel<D>
+      <<<grid, hop::THREADS, H::SMEM, stream>>>(p, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Pass 1 has one block per (key tile, KV head, batch row). Where that is
 // fewer than SPLIT_TARGET blocks and either too few to fill the card (under
 // SPLIT_TARGET / 4, about two an SM) or a full causal triangle, in which key
@@ -1484,22 +2261,31 @@ int launch_bwd(BwdParams bp, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward: bf16 on the tensor cores unless `fma` asks for the FMA design
+// The forward kernels by design: 0 the FMA design (float32, and bf16 on
+// request), 1 mma.sync on the tensor cores (bf16, D = 256), 2 the Hopper
+// design (bf16, D <= 128). A design the dtype and D do not take is refused.
+constexpr int FMA = 0, MMA = 1, WGMMA = 2;
+
 template <typename T, int D>
-int forward(const Params& p, int fma, cudaStream_t stream) {
-  if (sizeof(T) == 2 && !fma) return launch_tc<bf16, D>(p, stream);
-  return launch_fma<T, D>(p, stream);
+int forward(const Params& p, int design, cudaStream_t stream) {
+  if (design == FMA) return launch_fma<T, D>(p, stream);
+  if constexpr (sizeof(T) == 2 && D <= 128) {
+    if (design == WGMMA) return launch_wgmma<D>(p, stream);
+  } else if constexpr (sizeof(T) == 2) {
+    if (design == MMA) return launch_tc<bf16, D>(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
-int fwd_by_dim(const Params& p, int D, int fma, cudaStream_t s) {
+int fwd_by_dim(const Params& p, int D, int design, cudaStream_t s) {
   switch (D) {
-    case 16: return forward<T, 16>(p, fma, s);
-    case 32: return forward<T, 32>(p, fma, s);
-    case 64: return forward<T, 64>(p, fma, s);
-    case 80: return forward<T, 80>(p, fma, s);
-    case 128: return forward<T, 128>(p, fma, s);
-    case 256: return forward<T, 256>(p, fma, s);
+    case 16: return forward<T, 16>(p, design, s);
+    case 32: return forward<T, 32>(p, design, s);
+    case 64: return forward<T, 64>(p, design, s);
+    case 80: return forward<T, 80>(p, design, s);
+    case 128: return forward<T, 128>(p, design, s);
+    case 256: return forward<T, 256>(p, design, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1542,14 +2328,16 @@ bool shape_ok(int B, int Sq, int Sk, int H, int K, int q_offset) {
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out share it). D is one of 16,
 // 32, 64, 80, 128, 256; G = H / K is at most 64. Strides are in elements;
 // the last axis of q, k and v is contiguous, out (B, Sq, H, D) and lse
-// (B, H, Sq, float32) are contiguous. fma = 1 runs the fp32 FMA design for
-// bf16 too. Returns cudaGetLastError() after the launch (0 on success).
+// (B, H, Sq, float32) are contiguous. design: 0 the fp32 FMA design (any
+// dtype), 1 mma.sync (bf16, D = 256), 2 the Hopper design (bf16, D <= 128,
+// 16-byte aligned bases and strides: TMA reads q, k and v). Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out,
     float* lse, int B, int Sq, int Sk, int H, int K, int D, long long q_s0,
     long long q_s1, long long q_s2, long long k_s0, long long k_s1,
     long long k_s2, long long v_s0, long long v_s1, long long v_s2,
-    float scale, int causal, int window, int q_offset, int vec, int fma,
+    float scale, int causal, int window, int q_offset, int vec, int design,
     void* stream) {
   if (!shape_ok(B, Sq, Sk, H, K, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1558,8 +2346,8 @@ extern "C" int flash_attention_launch(
               q_s0, q_s1, q_s2, k_s0, k_s1, k_s2, v_s0, v_s1, v_s2,
               scale, causal, window, q_offset, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd_by_dim<float>(p, D, fma, s);
-  if (dtype == 1) return fwd_by_dim<bf16>(p, D, fma, s);
+  if (dtype == 0) return fwd_by_dim<float>(p, D, design, s);
+  if (dtype == 1) return fwd_by_dim<bf16>(p, D, design, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,9 +13,11 @@ the top of the source says what bounds them and how they are laid out.
 
 :func:`flash_attention` dispatches on the tensor's device: a CUDA tensor
 runs :class:`FlashAttentionFn`, whose forward launches the forward kernel
-(counted in ``flash_attention.launches``), which also writes the rows'
-log-sum-exp, and whose backward launches the backward kernel (counted in
-``flash_attention.bwd_launches``); each raises if its kernel cannot run.
+(counted in ``flash_attention.launches``, and also in
+``flash_attention.wgmma_launches`` where it is the Hopper design: bf16 with
+D <= 128), which also writes the rows' log-sum-exp, and whose backward
+launches the backward kernel (counted in ``flash_attention.bwd_launches``);
+each raises if its kernel cannot run.
 The JAX package has no backward kernel: its training differentiates the
 model's ``chunked_attention``. A CPU tensor takes
 :func:`flash_attention_plain` directly and trains by autograd through it.
@@ -56,6 +58,9 @@ from repro_torch.obs.trace import span
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernel's head dims
 MAX_G = 64                               # query heads per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward kernels (csrc/flash_attention.cu): the fp32 FMA design, mma.sync
+# on the tensor cores, the Hopper design (wgmma, TMA, warp-specialised)
+_DESIGNS = {"fma": 0, "mma": 1, "wgmma": 2}
 _count_lock = threading.Lock()
 _lib = None
 
@@ -182,17 +187,37 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _count_lock:
-        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+        for name in names:
+            setattr(flash_attention, name, getattr(flash_attention, name) + 1)
 
 
-def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
+def _forward_design(q: torch.Tensor, fma: bool = False) -> str:
+    """The forward kernel for q's dtype and head dim: ``"wgmma"``, the
+    Hopper design, for bf16 with D <= 128; ``"mma"`` (mma.sync) for bf16
+    with D = 256; ``"fma"`` for float32, or when ``fma`` asks for it."""
+    if fma or q.dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if q.shape[-1] <= 128 else "mma"
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA can read ``t``: a contiguous last axis, a 16-byte aligned base
+    and positive strides in multiples of 16 bytes (an axis of one element
+    is never stepped)."""
+    e = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or (st > 0 and (st * e) % 16 == 0)
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])))
+
+
+def _rows(t: torch.Tensor, name: str, tma: bool = False) -> torch.Tensor:
     """``t`` with a contiguous last axis (the kernel reads rows in place
-    through the other strides); a copy only when the last axis is
-    strided."""
-    if t.stride(-1) != 1:
-        t = t.contiguous()
+    through the other strides) and, with ``tma``, as TMA can read it; a
+    contiguous copy only when it is not."""
+    if t.stride(-1) != 1 or (tma and not _tma_ok(t)):
+        t = t.clone(memory_format=torch.contiguous_format)
     if t.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: {name} must be float32 or "
                         f"bfloat16, got {t.dtype}")
@@ -226,9 +251,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             q_offset: int) -> list[torch.Tensor]:
+             q_offset: int, tma: bool = False) -> list[torch.Tensor]:
     """q, k, v checked for the kernels: one device, a head dim and group
-    size they take, one dtype, rows contiguous."""
+    size they take, one dtype, rows contiguous (and TMA-readable with
+    ``tma``)."""
     _check(q, k, v)
     d, kh = q.shape[3], k.shape[2]
     if k.device != q.device or v.device != q.device:
@@ -240,7 +266,7 @@ def _prepare(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] == 0 or q_offset < 0:
         raise ValueError(f"flash_attention: needs Sk >= 1 and q_offset >= "
                          f"0, got Sk={k.shape[1]}, q_offset={q_offset}")
-    q, k, v = _rows(q, "q"), _rows(k, "k"), _rows(v, "v")
+    q, k, v = _rows(q, "q", tma), _rows(k, "k", tma), _rows(v, "v", tma)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: q, k and v must share a dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -257,11 +283,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int | None, q_offset: int,
             fma: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the forward kernel: (B, Sq, H, D) in q's dtype and the rows'
-    log-sum-exp (B, H, Sq) in float32. bf16 runs on the tensor cores;
-    ``fma`` asks for the fp32 FMA design instead (the float32 path), to
-    time the two side by side."""
+    log-sum-exp (B, H, Sq) in float32. bf16 runs on the tensor cores
+    (:func:`_forward_design`); ``fma`` asks for the fp32 FMA design instead
+    (the float32 path), to time the two side by side."""
     with span("repro.kernel.flash_attention"):
-        q, k, v = _prepare(q, k, v, q_offset)
+        design = _forward_design(q, fma)
+        q, k, v = _prepare(q, k, v, q_offset, tma=design == "wgmma")
         b, sq, h, d = q.shape
         sk, kh = k.shape[1], k.shape[2]
         out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -277,9 +304,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 1.0 / math.sqrt(d), int(causal),
                 0 if window is None else int(window), int(q_offset),
-                _vec(q, k, v), int(fma), stream)
+                _vec(q, k, v), _DESIGNS[design], stream)
         _raise_on(err, "flash_attention_launch")
-        _count("launches")
+        _count(*(("launches", "wgmma_launches") if design == "wgmma"
+                 else ("launches",)))
         return out, lse
 
 
@@ -411,4 +439,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0   # of which the Hopper design
 flash_attention.bwd_launches = 0

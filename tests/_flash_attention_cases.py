@@ -61,6 +61,28 @@ LONG_SHAPES = {
 }
 
 
+# The Hopper forward (bf16, D <= 128) at the shapes that run it: hubert's
+# D = 80 bidirectional at train_crop's ragged 781 frames and at 4096,
+# internvl2's G = 7 causal at a ragged length (its training runs 4352),
+# D = 128 with a window and q_offset, and D = 16 and 32.
+# name: (b, sq, sk, h, kh, d, causal, window, q_offset)
+HOPPER_SHAPES = {
+    "hubert_crop_781": (2, 781, 781, 16, 16, 80, False, None, 0),
+    "hubert_4096": (1, 4096, 4096, 16, 16, 80, False, None, 0),
+    "internvl2_g7_1170": (1, 1170, 1170, 14, 2, 64, True, None, 0),
+    "d128_window_offset": (2, 500, 700, 4, 2, 128, True, 300, 100),
+    "d16": (2, 200, 200, 4, 2, 16, True, None, 0),
+    "d32_bidirectional": (1, 130, 300, 6, 3, 32, False, None, 17),
+}
+
+
+def hopper_case(name):
+    b, sq, sk, h, kh, d, causal, window, q_offset = HOPPER_SHAPES[name]
+    return random_case(sorted(HOPPER_SHAPES).index(name) + 40, b, sq, sk, h,
+                       kh, d, causal=causal, window=window,
+                       q_offset=q_offset)
+
+
 def kernel_case(sq, h, kh, d, win):
     """Exactly the inputs of tests/test_kernels.py for this shape (float32;
     a bf16 test rounds them)."""

@@ -326,3 +326,30 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_train_state(configs.smoke_config("gemma3_1b"), OptimizerConfig(),
                          torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_forward_design_follows_dtype_and_head_dim(dtype, d, aligned):
+    """The forward's design is chosen from dtype and D alone: bf16 with
+    D <= 128 takes the Hopper design, bf16 at D = 256 mma.sync, float32
+    and the ``fma`` flag the FMA design. For the Hopper design an input
+    that TMA cannot read (a base off 16 bytes, rows of D + 1) is copied
+    into a contiguous tensor; every other input is read in place."""
+    if aligned:
+        q = torch.randn(2, 8, 4, d, dtype=dtype)
+    else:
+        q = torch.randn(2, 8, 4, d + 1, dtype=dtype)[..., 1:]
+    want = ("fma" if dtype == torch.float32
+            else "wgmma" if d <= 128 else "mma")
+    assert fa._forward_design(q) == want
+    assert fa._forward_design(q, fma=True) == "fma"
+    tma = want == "wgmma"
+    got = fa._prepare(q, q, q, 0, tma=tma)
+    assert all(torch.equal(t, q) for t in got)
+    assert fa._tma_ok(q) == aligned
+    copied = got[0].data_ptr() != q.data_ptr()
+    assert copied == (tma and not aligned)
+    if tma:
+        assert all(fa._tma_ok(t) for t in got)

@@ -9,8 +9,8 @@ tests/test_torch_flash_attention_cuda.py``.
 import pytest
 import torch
 
-from _flash_attention_cases import (ATOL_BF16, empty_rows_case, kernel_cases,
-                                    random_case)
+from _flash_attention_cases import (ATOL_BF16, HOPPER_SHAPES, empty_rows_case,
+                                    hopper_case, kernel_cases, random_case)
 from repro_torch.kernels import flash_attention as fa
 
 GRAD_ATOL = 1e-5     # float32 gradients against the plain version
@@ -165,3 +165,121 @@ def test_score_dtype_other_than_float32_raises_on_card(cuda_device):
     with pytest.raises(ValueError, match="float32 scores"):
         fa.flash_attention(*inputs(case, cuda_device),
                            score_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper forward (wgmma, TMA, warp-specialised; bf16, D <= 128)
+# ---------------------------------------------------------------------------
+
+
+def _counts():
+    return fa.flash_attention.launches, fa.flash_attention.wgmma_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(HOPPER_SHAPES))
+def test_hopper_forward_matches_plain_on_card(name, cuda_device):
+    """Output and lse of the Hopper design against the plain versions in
+    float32 on the same bf16 inputs (output 2e-2, lse 1e-5); one launch,
+    counted as the Hopper design; a second run is bit-identical."""
+    case = hopper_case(name)
+    q, k, v = inputs(case, cuda_device, torch.bfloat16)
+    before = _counts()
+    out, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    **kw(case))
+    torch.testing.assert_close(out.float(), want, atol=ATOL_BF16,
+                               rtol=ATOL_BF16)
+    want_lse = fa.flash_attention_lse_plain(q.float(), k.float(), **kw(case))
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=LSE_ATOL)
+    out2, lse2 = fa.flash_attention_forward(q, k, v, **kw(case))
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_hopper_forward_rows_without_keys_on_card(cuda_device):
+    """In bf16 too, a query with no valid key gets exact zeros and lse
+    -inf from the Hopper design."""
+    case, empty = empty_rows_case()
+    q, k, v = inputs(case, cuda_device, torch.bfloat16)
+    before = _counts()
+    out, lse = fa.flash_attention_forward(q, k, v, **kw(case))
+    assert _counts()[1] == before[1] + 1
+    assert bool((out[:, empty] == 0).all())
+    assert bool((lse[:, :, empty] == -float("inf")).all())
+    keep = [i for i in range(q.shape[1]) if i not in empty]
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    **kw(case))
+    torch.testing.assert_close(out[:, keep].float(), want[:, keep],
+                               atol=ATOL_BF16, rtol=ATOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hubert_crop_781", "internvl2_g7_1170"])
+def test_hopper_forward_gradients_on_card(name, cuda_device):
+    """Gradients through FlashAttentionFn in bf16 (the Hopper forward, the
+    backward kernel) against autograd through the plain version in float32
+    on the same rounded inputs, within the bf16 tolerance."""
+    case = hopper_case(name)
+    q0, k0, v0 = inputs(case, cuda_device, torch.bfloat16)
+    w = torch.randn(q0.shape, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(4))
+
+    def grads(fn, dtype):
+        q, k, v = (t.detach().to(dtype).requires_grad_(True)
+                   for t in (q0, k0, v0))
+        out = fn(q, k, v, **kw(case))
+        return torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    want = grads(fa.flash_attention_plain, torch.float32)
+    before = _counts()
+    got = grads(fa.flash_attention, torch.bfloat16)
+    assert _counts()[1] == before[1] + 1
+    for g, wg in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), wg, atol=ATOL_BF16,
+                                   rtol=ATOL_BF16)
+
+
+@pytest.mark.cuda
+def test_hopper_forward_reads_strided_and_unaligned_inputs_on_card(
+        cuda_device):
+    """q, k, v as views of one fused (B, S, 3, H, D) projection are read
+    in place; a base that is not 16-byte aligned is copied first (TMA
+    reads neither such a base nor such strides). Both match the plain
+    version."""
+    case = hopper_case("hubert_crop_781")
+    q, k, v = inputs(case, cuda_device, torch.bfloat16)
+    fused = torch.stack((q, k, v), dim=2)
+    qs, ks, vs = fused.unbind(2)
+    assert not qs.is_contiguous() and fa._tma_ok(qs)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    **kw(case))
+    got = fa.flash_attention(qs, ks, vs, **kw(case))
+    torch.testing.assert_close(got.float(), want, atol=ATOL_BF16,
+                               rtol=ATOL_BF16)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert not fa._tma_ok(shifted)
+    got = fa.flash_attention(shifted, k, v, **kw(case))
+    torch.testing.assert_close(got.float(), want, atol=ATOL_BF16,
+                               rtol=ATOL_BF16)
+
+
+@pytest.mark.cuda
+def test_wgmma_launches_count_only_the_hopper_design_on_card(cuda_device):
+    """A hubert-shaped bf16 call adds 1 to both counters; a bf16 call at
+    D = 256 (mma.sync) and a float32 call (the FMA design) add 1 to
+    ``launches`` and 0 to ``wgmma_launches``."""
+    for (d, dtype), add in (((80, torch.bfloat16), 1),
+                            ((256, torch.bfloat16), 0),
+                            ((80, torch.float32), 0)):
+        case = random_case(34, 1, 256, 256, 16 if d == 80 else 4,
+                           16 if d == 80 else 1, d, causal=d != 80)
+        before = _counts()
+        fa.flash_attention(*inputs(case, cuda_device, dtype), **kw(case))
+        torch.cuda.synchronize()
+        assert _counts() == (before[0] + 1, before[1] + add)
